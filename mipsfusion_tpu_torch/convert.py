@@ -1,0 +1,44 @@
+"""Field parameters between the JAX package's tree and the port's Field.
+
+The JAX tree is ``{"planes": {"s0": [3, 32, 32, 4], "s1": [3, 64, 64, 4],
+"cp": [3, 384, 40]}, "decoder": {layer: {"w": [in, out], "b": [out]}}}``
+(numpy leaves); the port keeps the same layout, so conversion copies
+leaves and checks the structure.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .models.decoder import LAYERS
+from .models.scene_rep import Field
+
+
+def params_from_jax(tree: Dict, device=None) -> Field:
+    """A Field holding copies of the JAX tree's (numpy) leaves."""
+    if set(tree) != {"planes", "decoder"}:
+        raise ValueError(f"expected planes + decoder, got {sorted(tree)}")
+    if set(tree["decoder"]) != set(LAYERS):
+        raise ValueError(f"decoder layers {sorted(tree['decoder'])}")
+
+    def t(a):
+        return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+
+    return Field({
+        "planes": {k: t(v) for k, v in tree["planes"].items()},
+        "decoder": {n: {"w": t(d["w"]), "b": t(d["b"])}
+                    for n, d in tree["decoder"].items()},
+    })
+
+
+def params_to_numpy(field: Field) -> Dict:
+    """The Field's parameters as a JAX-layout tree of numpy arrays."""
+    p = field.params(detach=True)
+    return {
+        "planes": {k: v.cpu().numpy() for k, v in p["planes"].items()},
+        "decoder": {n: {k: t.cpu().numpy() for k, t in d.items()}
+                    for n, d in p["decoder"].items()},
+    }

@@ -1,0 +1,162 @@
+// Shared definitions of the field kernels (flagship widths, taps, encode).
+//
+// The kernels are specialised to the flagship field of configs/base.yaml:
+// Triplane [32, 64] x F4 + CP 384 x 40 (embed 48), 8-band PE (51 inputs
+// with raw xyz), decoder 128 / 64+64 / 128 / 5 classes. The Python
+// wrappers raise on any other width; the plain PyTorch versions take any.
+//
+// Layouts are the plain parameter layouts of mipsfusion_tpu_torch (the
+// same as the JAX tree): plane s [3, R, R, 4], CP [3, 384, 40], decoder
+// w [in, out] row-major, b [out]. Point-indexed arrays are points-minor:
+// x [3, N], embed [48, N], out [10, N].
+//
+// Precision: float32 storage and float32 math throughout.
+
+#pragma once
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mf {
+
+constexpr int R0 = 32;
+constexpr int R1 = 64;
+constexpr int FEAT = 4;
+constexpr int RCP = 384;
+constexpr int CCP = 40;
+constexpr int EMB = 2 * FEAT + CCP;       // 48
+constexpr int NFREQ = 8;
+constexpr int PE = 3 + 3 * NFREQ * 2;     // 51
+constexpr int HID = 128;                  // trunk hidden
+constexpr int NSDF = 64;
+constexpr int NRGB = 64;
+constexpr int HBR = 128;                  // sdf branch hidden
+constexpr int NCLS = 5;
+constexpr int OUT_ROWS = 5 + NCLS;        // rgb 3, sdf, entropy, prob 5
+
+struct Tap {
+  int i0, i1;      // lower row and upper row (upper clamped to R-1)
+  float w;         // weight of the upper row (1-w on the lower)
+  bool has_next;   // row i0+1 exists
+};
+
+// Reference _coords (triplane_pallas.py:157): clip(u*(R-1), 0, R-1-1e-6)
+// in float32. The bound is formed in double and rounded once, as numpy
+// does; for R = 64 and 384 it rounds to exactly R-1, so i0 can be R-1 and
+// the upper tap (weight 0) must not read row R.
+template <int R>
+__device__ __forceinline__ Tap make_tap(float u) {
+  const float hi = (float)((double)(R - 1) - 1e-6);
+  float p = fminf(fmaxf(u * (float)(R - 1), 0.0f), hi);
+  float f = floorf(p);
+  Tap t;
+  t.i0 = (int)f;
+  t.w = p - f;
+  t.has_next = t.i0 + 1 <= R - 1;
+  t.i1 = t.has_next ? t.i0 + 1 : R - 1;
+  return t;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 f4_axpy(float a, float4 x, float4 y) {
+  return make_float4(fmaf(a, x.x, y.x), fmaf(a, x.y, y.y), fmaf(a, x.z, y.z),
+                     fmaf(a, x.w, y.w));
+}
+
+// Bilinear lookup of the 4 features of one [R, R, 4] plane.
+template <int R>
+__device__ __forceinline__ float4 plane_lookup(const float* P, const Tap& u,
+                                               const Tap& v) {
+  float4 p00 = ld4(P + (u.i0 * R + v.i0) * FEAT);
+  float4 p01 = ld4(P + (u.i0 * R + v.i1) * FEAT);
+  float4 p10 = ld4(P + (u.i1 * R + v.i0) * FEAT);
+  float4 p11 = ld4(P + (u.i1 * R + v.i1) * FEAT);
+  float a = (1.0f - u.w) * (1.0f - v.w), b = (1.0f - u.w) * v.w;
+  float c = u.w * (1.0f - v.w), d = u.w * v.w;
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  r = f4_axpy(a, p00, r);
+  r = f4_axpy(b, p01, r);
+  r = f4_axpy(c, p10, r);
+  r = f4_axpy(d, p11, r);
+  return r;
+}
+
+// Sum of the three plane lookups of one scale (planes xy, xz, yz).
+template <int R>
+__device__ __forceinline__ float4 scale_lookup(const float* S, const float x[3]) {
+  Tap t[3] = {make_tap<R>(x[0]), make_tap<R>(x[1]), make_tap<R>(x[2])};
+  const int RR = R * R * FEAT;
+  float4 a = plane_lookup<R>(S, t[0], t[1]);
+  float4 b = plane_lookup<R>(S + RR, t[0], t[2]);
+  float4 c = plane_lookup<R>(S + 2 * RR, t[1], t[2]);
+  return make_float4(a.x + b.x + c.x, a.y + b.y + c.y, a.z + b.z + c.z,
+                     a.w + b.w + c.w);
+}
+
+// Product of the three CP line lookups for channels c..c+3.
+__device__ __forceinline__ float4 cp_lookup4(const float* cp, const float x[3],
+                                             int c) {
+  float4 prod = make_float4(1.f, 1.f, 1.f, 1.f);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const Tap t = make_tap<RCP>(x[a]);
+    const float* L = cp + (size_t)a * RCP * CCP;
+    float4 lo = ld4(L + t.i0 * CCP + c);
+    float4 hi = ld4(L + t.i1 * CCP + c);
+    prod.x *= (1.0f - t.w) * lo.x + t.w * hi.x;
+    prod.y *= (1.0f - t.w) * lo.y + t.w * hi.y;
+    prod.z *= (1.0f - t.w) * lo.z + t.w * hi.z;
+    prod.w *= (1.0f - t.w) * lo.w + t.w * hi.w;
+  }
+  return prod;
+}
+
+// PE frequency 2^j * pi in float32 (reference: float32(2^j) * float32(pi)).
+__device__ __forceinline__ float pe_freq(int j) {
+  return (float)(1 << j) * 3.14159265358979323846f;
+}
+
+// Narrow output layer (J = 3 or 5) into registers.
+template <int J>
+__device__ __forceinline__ void dense_small(const float* in, size_t is, int K,
+                                            const float* __restrict__ W,
+                                            const float* __restrict__ b,
+                                            float out[J]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) out[j] = __ldg(b + j);
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float v = in[k * is];
+#pragma unroll
+    for (int j = 0; j < J; ++j) out[j] = fmaf(v, __ldg(W + k * J + j), out[j]);
+  }
+}
+
+// Softmax head: prob, sdf = (sum p_i i / (C-1) - 0.5) * 2.
+__device__ __forceinline__ float softmax_head(const float logits[NCLS],
+                                             float prob[NCLS]) {
+  float m = logits[0];
+#pragma unroll
+  for (int c = 1; c < NCLS; ++c) m = fmaxf(m, logits[c]);
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < NCLS; ++c) {
+    prob[c] = expf(logits[c] - m);
+    s += prob[c];
+  }
+  float sdf = 0.f;
+#pragma unroll
+  for (int c = 0; c < NCLS; ++c) {
+    prob[c] = prob[c] / s;
+    sdf += prob[c] * (float)c;
+  }
+  return (sdf / (float)(NCLS - 1) - 0.5f) * 2.0f;
+}
+
+struct DecoderW {
+  const float *w0, *b0, *w1, *b1, *wr, *br, *ws0, *bs0, *ws1, *bs1;
+};
+
+}  // namespace mf

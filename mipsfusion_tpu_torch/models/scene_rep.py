@@ -1,0 +1,270 @@
+"""Per-submap neural field: encode -> decode -> volume render -> losses.
+
+Port of the transposed (points-minor) training path of
+``mipsfusion_tpu/models/scene_rep.py``: rays [3, N], points [3, N*S],
+raw outputs [5 + C, N, S]. Every field query goes through the kernel
+wrappers of ``ops/field_cuda.py``: the differentiable ``FieldQueryT``
+for training (GO, BA, init) and the SDF-only forward for RO fitness.
+
+Field parameters are a tree in the JAX layout,
+``{"planes": {"s0", "s1", "cp"}, "decoder": {layer: {"w", "b"}}}``;
+``Field`` holds them as ``nn.Parameter``s.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from ..ops.encoding import FrequencyConfig, TriplaneConfig, init_triplane
+from ..ops.field_cuda import field_forward, field_query_T
+from ..ops.losses import compute_loss, get_sdf_loss_T, mse2psnr
+from .decoder import LAYERS, DecoderConfig, init_decoder
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldConfig:
+    tri: TriplaneConfig = TriplaneConfig()
+    freq: FrequencyConfig = FrequencyConfig()
+    decoder: DecoderConfig = DecoderConfig()
+    n_range_d: int = 25
+    range_d: float = 0.2
+    n_samples_d: int = 50
+    near: float = 0.0
+    far: float = 5.0
+    perturb: bool = True
+    trunc: float = 0.1
+    sc_factor: float = 1.0
+    depth_trunc: float = 100.0
+    rgb_missing: float = 0.0
+    norm_factor: float = 1.0
+    use_bound_normalize: bool = True
+
+    @property
+    def n_scales(self) -> int:
+        return len(self.tri.resolutions)
+
+    @property
+    def meta(self):
+        return (self.n_scales, self.freq.n_frequencies, self.decoder.n_class)
+
+    @staticmethod
+    def from_dict(cfg: dict) -> "FieldConfig":
+        if cfg["grid"].get("enc", "HashGrid") != "Triplane":
+            raise NotImplementedError(
+                "the port's field is Triplane+CP (grid.enc: Triplane)")
+        tri = TriplaneConfig(
+            resolutions=tuple(cfg["grid"].get("tri_resolutions", (32, 64))),
+            n_features=cfg["grid"].get("tri_features", 4),
+            cp_resolution=cfg["grid"].get("cp_resolution", 0),
+            cp_components=cfg["grid"].get("cp_components", 32))
+        freq = FrequencyConfig(n_frequencies=cfg["pos"]["n_bins"])
+        dec = cfg.get("decoder", {})
+        decoder = DecoderConfig(
+            input_ch=tri.out_dim, input_ch_pos=freq.out_dim + 3,
+            n_hidden=dec.get("hidden_dim", 128),
+            n_hidden_branch=dec.get("hidden_dim", 128),
+            n_hidden_rgb=dec.get("hidden_dim_color", 64),
+            n_hidden_sdf=dec.get("geo_feat_dim", 64))
+        t = cfg["training"]
+        return FieldConfig(
+            tri=tri, freq=freq, decoder=decoder,
+            n_range_d=t["n_range_d"], range_d=t["range_d"],
+            n_samples_d=t["n_samples_d"],
+            near=cfg["cam"]["near"], far=cfg["cam"]["far"],
+            perturb=bool(t["perturb"]), trunc=t["trunc"],
+            sc_factor=cfg["data"]["sc_factor"],
+            depth_trunc=cfg["cam"]["depth_trunc"],
+            rgb_missing=t["rgb_missing"], norm_factor=t["norm_factor"],
+            use_bound_normalize=bool(cfg["grid"]["use_bound_normalize"]))
+
+
+class FieldConsts(NamedTuple):
+    """Normalization x_norm = (x - bb_lo) * bb_inv_extent."""
+    bb_lo: torch.Tensor          # [3]
+    bb_inv_extent: torch.Tensor  # [3]
+
+    @staticmethod
+    def from_bound(bound: torch.Tensor) -> "FieldConsts":
+        return FieldConsts(bound[:, 0], 1.0 / (bound[:, 1] - bound[:, 0]))
+
+    @staticmethod
+    def from_norm_factor(nf: torch.Tensor) -> "FieldConsts":
+        return FieldConsts(-nf, 1.0 / (2.0 * nf))
+
+
+def init_field(cfg: FieldConfig, generator: torch.Generator,
+               device=None) -> Dict:
+    """Random field params (the reference's init scales) as a tree."""
+    planes = init_triplane(cfg.tri, generator, device)
+    return {"planes": planes,
+            "decoder": init_decoder(cfg.decoder, generator, device)}
+
+
+class Field(nn.Module):
+    """The planes, CP lines and decoder of one submap as parameters."""
+
+    def __init__(self, params: Dict):
+        super().__init__()
+        self.planes = nn.ParameterDict(
+            {k: nn.Parameter(v.detach().clone())
+             for k, v in params["planes"].items()})
+        self.decoder = nn.ModuleDict({
+            name: nn.ParameterDict({k: nn.Parameter(t.detach().clone())
+                                    for k, t in params["decoder"][name].items()})
+            for name in LAYERS})
+
+    def params(self, detach: bool = False) -> Dict:
+        f = (lambda t: t.detach()) if detach else (lambda t: t)
+        return {"planes": {k: f(v) for k, v in self.planes.items()},
+                "decoder": {n: {k: f(t) for k, t in d.items()}
+                            for n, d in self.decoder.items()}}
+
+
+# ---------------------------------------------------------------------------
+# Queries
+# ---------------------------------------------------------------------------
+
+def normalize_T(ptsT: torch.Tensor, consts: FieldConsts) -> torch.Tensor:
+    return (ptsT - consts.bb_lo[:, None]) * consts.bb_inv_extent[:, None]
+
+
+def query_color_sdf_T(params: Dict, ptsT_norm: torch.Tensor,
+                      cfg: FieldConfig) -> torch.Tensor:
+    """Differentiable query of normalized points [3, M] -> [5 + C, M]."""
+    return field_query_T(params, ptsT_norm / cfg.norm_factor, *cfg.meta)
+
+
+def run_network_sdf_T(params: Dict, ptsT: torch.Tensor, cfg: FieldConfig,
+                      consts: FieldConsts) -> torch.Tensor:
+    """SDF-only query (no gradient) of local-frame points [3, N] -> [N]."""
+    xg = (normalize_T(ptsT, consts) / cfg.norm_factor).contiguous()
+    with torch.no_grad():
+        return field_forward(xg, params["planes"], params["decoder"],
+                             *cfg.meta, sdf_only=True)[0]
+
+
+# ---------------------------------------------------------------------------
+# Rendering
+# ---------------------------------------------------------------------------
+
+def sdf2weights(sdf: torch.Tensor, z_vals: torch.Tensor,
+                cfg: FieldConfig) -> torch.Tensor:
+    """SDF [N, S] -> normalized compositing weights, masked after the first
+    sign crossing plus sc_factor * trunc."""
+    weights = torch.sigmoid(sdf / cfg.trunc) * torch.sigmoid(-sdf / cfg.trunc)
+    signs = sdf[:, 1:] * sdf[:, :-1]
+    mask = (signs < 0.0).to(sdf.dtype)
+    inds = torch.argmax(mask, dim=1, keepdim=True)     # first crossing
+    z_min = torch.gather(z_vals, 1, inds)
+    mask = (z_vals < z_min + cfg.sc_factor * cfg.trunc).to(sdf.dtype)
+    weights = weights * mask
+    return weights / (weights.sum(-1, keepdim=True) + 1e-8)
+
+
+def sample_z_vals(target_d: torch.Tensor, cfg: FieldConfig,
+                  generator: Optional[torch.Generator] = None,
+                  u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depth-guided + uniform z samples [N, n_range_d + n_samples_d],
+    sorted, then stratified-perturbed with ``u`` (drawn from
+    ``generator`` when not given) if ``cfg.perturb``. The reference's
+    ``_merge_sorted_z`` is a TPU sort workaround; torch.sort gives the
+    same values."""
+    n = target_d.shape[0]
+    dev, dt = target_d.device, target_d.dtype
+    z_near = torch.linspace(-cfg.range_d, cfg.range_d, cfg.n_range_d,
+                            device=dev, dtype=dt)
+    z_fallback = torch.linspace(cfg.near, cfg.far, cfg.n_range_d,
+                                device=dev, dtype=dt)
+    z_samples = torch.where(target_d > 0.0, z_near[None] + target_d,
+                            z_fallback[None])
+    if cfg.n_samples_d > 0:
+        z_uniform = torch.linspace(cfg.near, cfg.far, cfg.n_samples_d,
+                                   device=dev, dtype=dt).expand(n, -1)
+        z_vals = torch.sort(torch.cat([z_uniform, z_samples], -1), -1).values
+    else:
+        z_vals = z_samples
+    if cfg.perturb:
+        mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        upper = torch.cat([mids, z_vals[..., -1:]], -1)
+        lower = torch.cat([z_vals[..., :1], mids], -1)
+        if u is None:
+            u = torch.rand(z_vals.shape, generator=generator, device=dev,
+                           dtype=dt)
+        z_vals = lower + (upper - lower) * u
+    return z_vals
+
+
+def raw2outputs_T(rawT: torch.Tensor, z_vals: torch.Tensor,
+                  cfg: FieldConfig):
+    """[5 + C, N, S] raw -> (rgb [3, N], depth [N]). The reference also
+    returns the weights and the depth variance, which the slice never
+    reads."""
+    rgbT = torch.sigmoid(rawT[:3])
+    weights = sdf2weights(rawT[3], z_vals, cfg)
+    rgb_mapT = (weights[None] * rgbT).sum(-1)
+    depth_map = (weights * z_vals).sum(-1)
+    return rgb_mapT, depth_map
+
+
+def render_rays_T(params: Dict, rays_oT: torch.Tensor, rays_dT: torch.Tensor,
+                  target_d: torch.Tensor, cfg: FieldConfig,
+                  consts: FieldConsts,
+                  generator: Optional[torch.Generator] = None,
+                  u: Optional[torch.Tensor] = None) -> Dict:
+    z_vals = sample_z_vals(target_d, cfg, generator, u)          # [N, S]
+    ptsT = rays_oT[:, :, None] + rays_dT[:, :, None] * z_vals[None]
+    n, s = z_vals.shape
+    xT = normalize_T(ptsT.reshape(3, n * s), consts)
+    rawT = query_color_sdf_T(params, xT, cfg).reshape(-1, n, s)
+    rgb_mapT, depth_map = raw2outputs_T(rawT, z_vals, cfg)
+    return {"rgbT": rgb_mapT, "depth": depth_map, "z_vals": z_vals,
+            "rawT": rawT}
+
+
+def forward_losses_T(params: Dict, rays_oT: torch.Tensor,
+                     rays_dT: torch.Tensor, target_rgbT: torch.Tensor,
+                     target_d: torch.Tensor, cfg: FieldConfig,
+                     consts: FieldConsts, emd_w: float = 0.01,
+                     generator: Optional[torch.Generator] = None,
+                     u: Optional[torch.Tensor] = None) -> Dict:
+    """Render [3, N] rays and compute the training loss dict."""
+    rend = render_rays_T(params, rays_oT, rays_dT, target_d, cfg, consts,
+                         generator, u)
+    td = target_d[..., 0]
+    valid = (td > 0.0) & (td < cfg.depth_trunc)
+    validf = valid.to(td.dtype)
+    rgb_weight = torch.where(valid[None], torch.ones_like(validf),
+                             torch.full_like(validf, cfg.rgb_missing))
+    rgb_loss = compute_loss(rend["rgbT"] * rgb_weight,
+                            target_rgbT * rgb_weight)
+    nvalid = torch.clamp(validf.sum(), min=1.0)
+    depth_loss = (((rend["depth"] - td) ** 2) * validf).sum() / nvalid
+    fs_loss, sdf_loss = get_sdf_loss_T(
+        rend["z_vals"], target_d, rend["rawT"][3], rend["rawT"][5:],
+        cfg.trunc * cfg.sc_factor, cate_num=cfg.decoder.n_class, emd_w=emd_w)
+    return {"rgbT": rend["rgbT"], "depth": rend["depth"],
+            "rgb_loss": rgb_loss, "depth_loss": depth_loss,
+            "sdf_loss": sdf_loss, "fs_loss": fs_loss,
+            "psnr": mse2psnr(rgb_loss)}
+
+
+class LossWeights(NamedTuple):
+    rgb: float = 1.0
+    depth: float = 0.0
+    sdf: float = 1000.0
+    fs: float = 10.0
+
+    @staticmethod
+    def from_dict(cfg: dict) -> "LossWeights":
+        t = cfg["training"]
+        return LossWeights(rgb=t["rgb_weight"], depth=t["depth_weight"],
+                           sdf=t["sdf_weight"], fs=t["fs_weight"])
+
+
+def total_loss(ret: Dict, w: LossWeights) -> torch.Tensor:
+    return (w.rgb * ret["rgb_loss"] + w.depth * ret["depth_loss"]
+            + w.sdf * ret["sdf_loss"] + w.fs * ret["fs_loss"])

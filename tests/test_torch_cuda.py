@@ -1,0 +1,81 @@
+"""The CUDA kernels on the card, against their plain PyTorch versions.
+
+These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
+without one. This file imports neither jax nor the JAX package, so it also
+runs on a GPU machine without jax, where tests/conftest.py (which imports
+jax) must be left out:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
+"""
+
+import pytest
+import torch
+
+import chip_smoke
+from mipsfusion_tpu_torch.ops import field_cuda as fc
+from mipsfusion_tpu_torch.ops import triplane_cuda as tc
+
+pytestmark = pytest.mark.cuda
+META = (2, 8, 5)
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    prm = chip_smoke.flagship_params(0, dev)
+    return dev, prm
+
+
+def test_forward_kernels_match_plain(card):
+    dev, prm = card
+    x = chip_smoke.test_points(20_000, 1, dev)
+    planes, dec = prm["planes"], prm["decoder"]
+    out, emb = fc.field_forward(x, planes, dec, *META, return_embed=True)
+    ref, ref_emb = fc.field_forward_plain(x, planes, dec, *META,
+                                          return_embed=True)
+    assert chip_smoke._err(out, ref)[1] < 2e-5
+    assert chip_smoke._err(emb, ref_emb)[1] < 2e-5
+    sdf = fc.field_forward(x, planes, dec, *META, sdf_only=True)
+    assert chip_smoke._err(sdf[0], ref[3])[1] < 2e-5
+
+
+def test_backward_kernels_match_plain(card):
+    """K2 with a cotangent that is zero near ReLU kinks (see
+    chip_smoke.kink_free), K3 (float32 atomics) and K4, relative 1e-4."""
+    dev, prm = card
+    x = chip_smoke.test_points(20_000, 2, dev)
+    planes, dec = prm["planes"], prm["decoder"]
+    _, emb = fc.field_forward(x, planes, dec, *META, return_embed=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    g = torch.randn((10, x.shape[1]), generator=gen, device=dev) * 0.1
+    g, _ = chip_smoke.kink_free(g, x, emb, dec)
+    k2 = fc.decoder_backward(x, g, emb, dec, 8, 5)
+    r2 = fc.decoder_backward_plain(x, g, emb, dec, 8, 5)
+    assert chip_smoke._err(k2[0], r2[0])[1] < 1e-4
+    assert chip_smoke._err(k2[1], r2[1])[1] < 1e-4
+    for n in k2[2]:
+        for k in ("w", "b"):
+            assert chip_smoke._err(k2[2][n][k], r2[2][n][k])[1] < 1e-4
+    d = torch.randn((48, x.shape[1]), generator=gen, device=dev) * 0.1
+    k3 = tc.plane_backward(x, d, planes, 2)
+    r3 = tc.plane_backward_plain(x, d, planes, 2)
+    for k in k3:
+        assert chip_smoke._err(k3[k], r3[k])[1] < 1e-4
+    assert chip_smoke._err(tc.x_backward(x, d, planes, 2),
+                           tc.x_backward_plain(x, d, planes, 2))[1] < 1e-4
+
+
+def test_kernels_raise_on_other_widths(card):
+    """A CUDA tensor launches the kernel or raises: a non-flagship width
+    raises instead of falling back to the plain version."""
+    dev, prm = card
+    x = chip_smoke.test_points(256, 3, dev)
+    planes = dict(prm["planes"])
+    planes["cp"] = planes["cp"][:, :, :32].contiguous()
+    with pytest.raises(ValueError, match="flagship"):
+        fc.field_forward(x, planes, prm["decoder"], *META)
+    with pytest.raises(ValueError):
+        fc.field_forward(x, prm["planes"], prm["decoder"], 2, 4, 5)
