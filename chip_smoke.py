@@ -5,16 +5,27 @@
 Phases (any failure raises; the exit code is then non-zero):
   1. device  - require CUDA; print nvidia-smi's name and power limit;
   2. build   - compile the field kernels (mipsfusion_tpu_torch/csrc) with
-               nvcc for sm_90a;
-  3. kernels - each of K1-K4 against its plain PyTorch version at the SLAM
+               nvcc for sm_90a, one process per source;
+  3. kernels - each of K0-K4 against its plain PyTorch version at the SLAM
                loop's shapes (flagship widths, params from a fixed seed,
                points inside, outside and on the edge of [0, 1]^3): max
                abs / relative error beside the tolerance, median times;
-  4. autograd - FieldQueryT's gradients against the plain path;
-  5. slam    - 45 frames of the flagship orbit at full budgets through
-               MIPSFusionTorch.run(): ATE, tracked FPS, launch counts.
+  4. autograd - FieldQueryT's and TriplaneEncode's gradients against the
+               plain path;
+  5. orbit   - 45 frames of the flagship orbit at full budgets,
+               single submap (use_manager: False), through
+               MIPSFusionTorch.run(): ATE, tracked FPS, launch counts;
+  6. outback - 200 frames of the flagship out-and-back scene at full
+               budgets with the submap manager (use_manager: True): new
+               submaps, a switch back with switch BA and PGO, background
+               refinement; ATE, FPS, submaps, switch frames, stage times;
+               then switch BA once more alone (K1, K2, K4, and no K3).
 The kernels' JSON line comes second to last; the last line is
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --outback-seeds 0,1,2,0
+
+runs phases 1, 2 and then only phase 6, once per seed (repeatability).
 """
 
 from __future__ import annotations
@@ -137,11 +148,14 @@ def kink_free(g, x, embed, dec, margin: float = 1e-4):
 # float32; they differ in summation order (K2's point sums, K3's atomics),
 # and the sums run over 1e5-1e6 terms. K2 and the autograd phase use a
 # cotangent that is zero near ReLU kinks (kink_free).
-TOL = {"field_forward": 2e-5, "field_forward_sdf": 2e-5,
+TOL = {"encode_forward": 2e-5,
+       "field_forward": 2e-5, "field_forward_sdf": 2e-5,
        "decoder_backward": 1e-4, "plane_backward": 1e-4,
        "x_backward": 1e-4}
 
 REPLACES = {
+    "encode_forward":
+        "mipsfusion_tpu/ops/triplane_pallas.py:218 _fused_forward",
     "field_forward":
         "mipsfusion_tpu/ops/field_pallas.py:310 field_query_pallas",
     "decoder_backward":
@@ -152,6 +166,7 @@ REPLACES = {
         "mipsfusion_tpu/ops/triplane_pallas.py:453 _fused_backward_x",
 }
 SOURCE = {
+    "encode_forward": "mipsfusion_tpu_torch/csrc/triplane.cu",
     "field_forward": "mipsfusion_tpu_torch/csrc/field.cu",
     "decoder_backward": "mipsfusion_tpu_torch/csrc/field.cu",
     "plane_backward": "mipsfusion_tpu_torch/csrc/triplane.cu",
@@ -188,8 +203,18 @@ def phase_kernels():
         r["ms"][label] = ms
         r["plain_ms"][label] = plain_ms
 
-    # K1 full with return_embed at the BA shape (195,000 points)
+    # K0 at the BA shape (195,000 points), row layout [N, 3] -> [N, 48]
     x = test_points(195_000, 1, dev)
+    xr0 = x.T.contiguous()
+    out = tc.encode_forward(xr0, planes, 2)
+    ref = tc.encode_forward_plain(planes, xr0, 2)
+    record("encode_forward", "encode_forward", {"embed": _err(out, ref)},
+           _time_ms(lambda: tc.encode_forward(xr0, planes, 2)),
+           _time_ms(lambda: tc.encode_forward_plain(planes, xr0, 2)),
+           x.shape[1])
+    del xr0, out, ref
+
+    # K1 full with return_embed at the BA shape
     out, emb = fc.field_forward(x, planes, dec, *meta, return_embed=True)
     ref, ref_emb = fc.field_forward_plain(x, planes, dec, *meta,
                                           return_embed=True)
@@ -292,12 +317,63 @@ def phase_autograd():
     if not (worst <= 1e-4 and wx <= 1e-4):
         _fail("FieldQueryT gradients disagree with the plain path")
 
+    # TriplaneEncode (K0 forward, K3 + K4 backward) against autograd of
+    # the plain composite encode
+    from mipsfusion_tpu_torch.ops import triplane_cuda as tc
+    xe = x.T.contiguous()
+    Ge = torch.randn((xe.shape[0], 48), generator=gen, device=dev) * 0.1
+
+    def enc_grads(run_plain: bool):
+        planes = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in p["planes"].items()}
+        xx = xe.clone().requires_grad_(True)
+        fn = tc.encode_forward_plain if run_plain else tc.triplane_encode
+        (fn(planes, xx, 2) * Ge).sum().backward()
+        return [planes[k].grad for k in ("s0", "s1", "cp")], xx.grad
+
+    gk, xk = enc_grads(False)
+    gp, xp = enc_grads(True)
+    worst = max(_err(a, b)[1] for a, b in zip(gk, gp))
+    wx = _err(xk, xp)[1]
+    print(f"autograd TriplaneEncode: planes max_rel={worst:.3e} "
+          f"x max_rel={wx:.3e} tol_rel=1e-4")
+    if not (worst <= 1e-4 and wx <= 1e-4):
+        _fail("TriplaneEncode gradients disagree with the plain path")
+
+
+# the kernels every SLAM path launches (K0 has no caller on the SLAM path,
+# as triplane_encode_pallas has none in the JAX package)
+SLAM_KERNELS = ("field_forward", "decoder_backward", "plane_backward",
+                "x_backward")
+
+
+def _run_path(slam):
+    """Drive the port's entry point with every launch count set to 0 just
+    before and read just after; returns (results, counts, wall s)."""
+    import torch
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    fc.reset_launch_counts()
+    t0 = time.time()
+    res = slam.run(verbose=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = fc.launch_counts()
+    missing = [k for k in SLAM_KERNELS if counts[k] <= 0]
+    if missing:
+        _fail(f"kernels never launched by the SLAM loop: {missing}")
+    losses = np.asarray([float(v) for v in slam.track_losses])
+    if not np.isfinite(losses).all():
+        _fail("non-finite tracking loss")
+    if not all(t.is_cuda for f in slam.fields if f is not None
+               for t in f.parameters()):
+        _fail("field parameters are not on the GPU")
+    return res, counts, wall
+
 
 def phase_slam(n_frames: int = 45):
     import torch
     from mipsfusion_tpu_torch.config import flagship_orbit
     from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
-    from mipsfusion_tpu_torch.ops import field_cuda as fc
     from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
     dev = torch.device("cuda")
     cfg = flagship_orbit(use_manager=False)
@@ -305,46 +381,129 @@ def phase_slam(n_frames: int = 45):
     ds = SyntheticDataset(cfg, n_frames=n_frames, trajectory="orbit",
                           span=n_frames / 200.0, device=dev)
     slam = MIPSFusionTorch(cfg, dataset=ds, device=dev)
-    fc.reset_launch_counts()
-    t0 = time.time()
-    res = slam.run(verbose=False)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = fc.launch_counts()
+    res, counts, wall = _run_path(slam)
     ate = res["absolute_translational_error.rmse"]
-    losses = np.asarray([float(v) for v in slam.track_losses])
-    on_cuda = all(t.is_cuda for t in slam.field.parameters())
-    print(f"slam: {n_frames} frames  ATE RMSE {ate * 1000:.2f} mm  "
+    print(f"orbit: {n_frames} frames  ATE RMSE {ate * 1000:.2f} mm  "
           f"tracked FPS {res['fps']:.2f}  wall {wall:.1f} s  "
           f"submaps {res['n_submaps']}  launches {counts}")
-    print("slam stage ms (host clock, synchronised per stage): "
+    print("orbit stage ms (CUDA events, mean per call): "
           + json.dumps({k: round(v, 3) for k, v in slam.stage_ms().items()}))
     if not ate < 0.02:
-        _fail(f"ATE {ate:.4f} m >= 0.02 m")
-    if not np.isfinite(losses).all():
-        _fail("non-finite tracking loss")
+        _fail(f"orbit ATE {ate:.4f} m >= 0.02 m")
     if res["n_submaps"] != 1:
-        _fail(f"n_submaps {res['n_submaps']} != 1")
-    if not on_cuda:
-        _fail("field parameters are not on the GPU")
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        _fail(f"kernels never launched by the SLAM loop: {missing}")
-    return counts, res
+        _fail(f"orbit n_submaps {res['n_submaps']} != 1")
+    return counts
 
 
-def main():
+def phase_outback(n_frames: int = 200, seed: int = 0):
+    """The slice's main path: the default multi-submap loop on the
+    flagship out-and-back scene at full budgets (``seed``: the system's
+    random draws and initial field)."""
+    import torch
+    from mipsfusion_tpu_torch.config import flagship_outback
+    from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
+    from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
+    dev = torch.device("cuda")
+    cfg = flagship_outback(use_manager=True, seed=seed)
+    cfg["data"]["output"] = None
+    ds = SyntheticDataset(cfg, n_frames=n_frames, trajectory="outback",
+                          span=1.0, device=dev)
+    slam = MIPSFusionTorch(cfg, dataset=ds, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, wall = _run_path(slam)
+    ate = res["absolute_translational_error.rmse"]
+    calls = dict(slam.stage_calls)
+    print(f"outback: {n_frames} frames  seed {seed}  ATE RMSE "
+          f"{ate * 1000:.2f} mm  tracked FPS {res['fps']:.2f}  "
+          f"wall {wall:.1f} s  submaps {res['n_submaps']}  switches "
+          f"(frame, flag) {slam.switch_events}  peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"outback launches {counts}  stage calls {calls}")
+    print("outback stage ms (CUDA events, mean per call): "
+          + json.dumps({k: round(v, 3) for k, v in slam.stage_ms().items()}))
+    st = slam.state
+    used = res["n_submaps"]
+    anchors = st.kf_c2w[st.localMLP_first_kf[:used]].cpu().numpy()
+    R = anchors[:, :3, :3]
+    if not (np.isfinite(anchors).all() and np.allclose(
+            R @ R.transpose(0, 2, 1), np.eye(3), atol=1e-3)):
+        _fail("a submap anchor is not finite and orthonormal")
+    if not ate < 0.03:
+        _fail(f"outback ATE {ate:.4f} m >= 0.03 m")
+    if used < 2:
+        _fail(f"outback n_submaps {used} < 2")
+    for stage in ("switch_back", "switch_ba", "pgo", "refine"):
+        if calls.get(stage, 0) < 1:
+            _fail(f"outback: no {stage} ran")
+    # switch BA again on the last switch-back frame, after the run: the
+    # field is frozen, so K1, K2 and K4 launch and K3 (plane gradients)
+    # must not
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    i_sw = max(f for f, flag in slam.switch_events if flag == 1)
+    fc.reset_launch_counts()
+    slam.local_ba_switch(ds.packed(i_sw), i_sw // slam.keyframe_every, i_sw)
+    sw = fc.launch_counts()
+    print(f"outback switch BA alone (frame {i_sw}): launches {sw}")
+    if sw["plane_backward"] != 0 or not all(
+            sw[k] > 0 for k in ("field_forward", "decoder_backward",
+                                "x_backward")):
+        _fail(f"switch BA launches {sw}: want K1, K2, K4 and no K3")
+    return counts
+
+
+def outback_seeds(seeds):
+    """Repeatability: the outback phase once per seed, in one process
+    after one build. Every seed runs; the exit is non-zero if any failed."""
+    phase_device()
+    phase_build()
+    failed = []
+    for s in seeds:
+        try:
+            phase_outback(seed=s)
+        except SystemExit as e:
+            print(e)
+            failed.append(s)
+    if failed:
+        _fail(f"outback failed for seeds {failed}")
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--outback-seeds", default=None,
+                    help="comma-separated seeds, e.g. 0,1,2,0: build, then "
+                         "run only the outback phase once per seed")
+    args = ap.parse_args(argv)
+    if args.outback_seeds is not None:
+        outback_seeds([int(s) for s in args.outback_seeds.split(",")])
+        return 0
     phase_device()
     import torch
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
     phase_build()
+    fc.reset_launch_counts()
     rows = phase_kernels()
     phase_autograd()
-    counts, _ = phase_slam()
+    k0_launches = fc.launch_counts()["encode_forward"]
+    orbit_counts = phase_slam()
+    counts = phase_outback()
+    # K0 has no SLAM caller (as triplane_encode_pallas has none in the JAX
+    # package): neither loop may launch it
+    k0_loops = (orbit_counts["encode_forward"], counts["encode_forward"])
+    if any(k0_loops):
+        _fail(f"K0 launched by a SLAM loop (orbit, outback): {k0_loops}")
     kernels = []
     for name, r in rows.items():
+        on_path = name in SLAM_KERNELS
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"],
-            "replaces": r["replaces"], "launches": counts[name],
+            "replaces": r["replaces"],
+            # the main path's launches (the outback run); K0's count is
+            # from the kernel and autograd phases
+            "launches": counts[name] if on_path else k0_launches,
+            "launches_outback": counts[name],
+            "launches_orbit": orbit_counts[name],
+            "slam_caller": on_path,
             "max_abs_err": r["max_abs_err"],
             # "ms" at the first shape measured (the BA batch, 195,000
             # points); every shape's times ride beside it

@@ -1,9 +1,11 @@
-"""The flagship configuration written out in Python.
+"""The flagship configurations written out in Python.
 
 ``FLAGSHIP_ORBIT`` is ``configs/base.yaml`` merged with
-``configs/synthetic/orbit.yaml`` (what ``mipsfusion_tpu.config.load_config``
-returns for the orbit yaml), so the port runs without PyYAML.
-``tests/test_torch_slice.py`` holds it equal to the merged yaml.
+``configs/synthetic/orbit.yaml`` and ``FLAGSHIP_OUTBACK`` the same base
+merged with ``configs/synthetic/outback.yaml`` (what
+``mipsfusion_tpu.config.load_config`` returns for each yaml), so the port
+runs without PyYAML. ``tests/test_torch_slice.py`` and
+``tests/test_torch_multi.py`` hold them equal to the merged yamls.
 """
 
 from __future__ import annotations
@@ -145,8 +147,49 @@ FLAGSHIP_ORBIT: Dict[str, Any] = {
 }
 
 
+def _merged(base: Dict[str, Any], over: Dict[str, Any]) -> Dict[str, Any]:
+    """Deep merge (``over`` wins on leaves), as the yaml loader does."""
+    out = copy.deepcopy(base)
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _merged(out[k], v)
+        else:
+            out[k] = copy.deepcopy(v)
+    return out
+
+
+# outback.yaml against orbit.yaml: the same room, camera and bound; the
+# out-and-back trajectory, small submaps and the loop-closure settings
+FLAGSHIP_OUTBACK: Dict[str, Any] = _merged(FLAGSHIP_ORBIT, {
+    "synthetic": {"trajectory": "outback"},
+    "data": {"exp_name": "synthetic_outback"},
+    "mapping": {
+        "keyframe_every": 10,
+        "localMLP_max_len": [2.0, 2.0, 2.0],
+        "localMLP_max_len_back": [2.0, 2.0, 2.0],
+        "min_cr_localMLP_len": [1.8, 1.8, 1.8],
+        "min_containing_ratio": 0.75,
+        "min_containing_ratio_mo": 0.6,
+        "min_containing_ratio_back": 0.5,
+        "global_BA": {"key_edge_weight": 0.1},
+    },
+    "tracking": {"switch": {
+        "lr_rot": 0.001, "lr_trans": 0.001, "align_threshold": 0.08,
+        "including_last": 0, "min_correspondence": 2000,
+        "min_trans_dist": 0.5, "map_num": 15, "iter_RO": 10, "iter": 20,
+    }},
+})
+
+
 def flagship_orbit(**top_level) -> Dict[str, Any]:
     """A deep copy of ``FLAGSHIP_ORBIT`` with top-level keys replaced."""
     cfg = copy.deepcopy(FLAGSHIP_ORBIT)
+    cfg.update(top_level)
+    return cfg
+
+
+def flagship_outback(**top_level) -> Dict[str, Any]:
+    """A deep copy of ``FLAGSHIP_OUTBACK`` with top-level keys replaced."""
+    cfg = copy.deepcopy(FLAGSHIP_OUTBACK)
     cfg.update(top_level)
     return cfg

@@ -1,4 +1,18 @@
-// K3: plane / CP-line gradients, and K4: coordinate gradients.
+// K0: the Triplane+CP encoding alone, K3: plane / CP-line gradients, and
+// K4: coordinate gradients.
+//
+// K0 replaces mipsfusion_tpu/ops/triplane_pallas.py _fused_forward
+// (_make_fwd_kernel), the forward of triplane_encode_pallas. The TPU built
+// each lookup as a one-hot matmul over a 2048-point block with bf16 planes.
+// Here one thread per point gathers, per scale, the 4 taps of each of the
+// three planes (float4 reads of F = 4) and, for the CP term, 2 taps of
+// each of the three lines per group of 4 channels, with the device
+// functions K1 uses (common.cuh scale_lookup, cp_lookup4), so K0 and K1
+// share one interpolation, the upper-tap clamp included. It writes the
+// [N, 48] row layout of triplane_encode_pallas (12 float4 stores a point).
+// The tables (48 + 192 + 180 KB) stay in L2; it is bound by the latency of
+// ~84 dependent gathers a point, not by device-memory bandwidth.
+// Precision: float32 storage and math (the TPU cast planes and CP to bf16).
 //
 // K3 replaces mipsfusion_tpu/ops/triplane_pallas.py _fused_backward_plane
 // (_make_bwd_plane_kernel). The TPU computed the scatter as a transposed
@@ -25,6 +39,24 @@
 namespace mf {
 
 constexpr int K34_THREADS = 128;
+constexpr int K0_THREADS = 128;
+
+__global__ void __launch_bounds__(K0_THREADS)
+    encode_fwd_kernel(const float* __restrict__ x,
+                      const float* __restrict__ s0,
+                      const float* __restrict__ s1,
+                      const float* __restrict__ cp, int N,
+                      float* __restrict__ out) {
+  const int n = blockIdx.x * K0_THREADS + threadIdx.x;
+  if (n >= N) return;
+  const float xp[3] = {x[3 * (size_t)n], x[3 * (size_t)n + 1],
+                       x[3 * (size_t)n + 2]};
+  float4* o = reinterpret_cast<float4*>(out + (size_t)n * EMB);
+  o[0] = scale_lookup<R0>(s0, xp);
+  o[1] = scale_lookup<R1>(s1, xp);
+#pragma unroll 2
+  for (int c = 0; c < CCP; c += 4) o[2 + c / 4] = cp_lookup4(cp, xp, c);
+}
 
 template <int R>
 __device__ __forceinline__ void scatter_plane(float* dP, const Tap& u,
@@ -182,6 +214,16 @@ __global__ void __launch_bounds__(K34_THREADS)
 }  // namespace mf
 
 using namespace mf;
+
+extern "C" int mf_encode_forward(const float* x, const float* s0,
+                                 const float* s1, const float* cp, int n,
+                                 float* out, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  int grid = (n + K0_THREADS - 1) / K0_THREADS;
+  encode_fwd_kernel<<<grid, K0_THREADS, 0, (cudaStream_t)stream>>>(
+      x, s0, s1, cp, n, out);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int mf_plane_backward(const float* x, const float* d_embed,
                                  const float* cp, int n, float* d_s0,

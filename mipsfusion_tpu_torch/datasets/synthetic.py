@@ -1,11 +1,11 @@
 """Procedural synthetic RGB-D sequence: an analytic box room with props.
 
 Port of ``mipsfusion_tpu/datasets/synthetic.py`` (the classic prop scene
-and the ``orbit`` trajectory). Frames are rendered on the port's device by
-sphere-tracing the analytic SDF along the OpenGL pixel rays; depth and the
-procedural albedo are exact, so ATE has a clean ground truth. Other
-trajectories, the tiled prop field and the sensor-noise model are not
-ported yet.
+and the ``orbit``, ``corridor`` and ``outback`` trajectories). Frames are
+rendered on the port's device by sphere-tracing the analytic SDF along the
+OpenGL pixel rays; depth and the procedural albedo are exact, so ATE has a
+clean ground truth. The other trajectories, the tiled prop field and the
+sensor-noise model are not ported yet.
 """
 
 from __future__ import annotations
@@ -99,12 +99,30 @@ def raycast(rays_o: torch.Tensor, rays_d: torch.Tensor,
     return torch.where(valid, t, torch.zeros_like(t)), valid
 
 
-def orbit_pose(i: int, n_frames: int, span: float) -> np.ndarray:
-    """Slow yaw sweep from near the room center (reference ``orbit``)."""
+def trajectory_pose(trajectory: str, i: int, n_frames: int,
+                    span: float) -> np.ndarray:
+    """c2w of frame i (yaw about +y; the OpenGL camera looks along -z):
+    ``orbit``, a slow yaw sweep from near the room center; ``corridor``,
+    a translation along x while yawing; ``outback``, straight out along
+    +x and back along the same path with the same heading, so the return
+    leg revisits the starting views."""
     t = span * i / max(n_frames - 1, 1)
-    ang = 0.9 * np.sin(2 * np.pi * t)
-    pos = np.array([0.8 * np.sin(2 * np.pi * t), 0.3 * np.sin(4 * np.pi * t),
-                    0.5 * np.cos(2 * np.pi * t)])
+    if trajectory == "orbit":
+        ang = 0.9 * np.sin(2 * np.pi * t)
+        pos = np.array([0.8 * np.sin(2 * np.pi * t),
+                        0.3 * np.sin(4 * np.pi * t),
+                        0.5 * np.cos(2 * np.pi * t)])
+    elif trajectory == "corridor":
+        ang = 0.3 * np.sin(2 * np.pi * t)
+        pos = np.array([-2.0 + 4.0 * t, 0.2 * np.sin(2 * np.pi * t), 0.0])
+    elif trajectory == "outback":
+        tri = 1.0 - abs(2.0 * t - 1.0)   # 0 -> 1 -> 0
+        ang = 0.25 * np.sin(2 * np.pi * t)
+        pos = np.array([2.4 * tri, 0.15 * np.sin(4 * np.pi * t), 0.0])
+    else:
+        raise NotImplementedError(
+            f"trajectory {trajectory!r}: the port has orbit, corridor and "
+            "outback")
     c, s = np.cos(ang), np.sin(ang)
     c2w = np.eye(4, dtype=np.float32)
     c2w[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
@@ -118,9 +136,6 @@ class SyntheticDataset:
 
     def __init__(self, cfg: Dict, n_frames: int = 200,
                  trajectory: str = "orbit", span: float = 1.0, device=None):
-        if trajectory != "orbit":
-            raise NotImplementedError(
-                f"trajectory {trajectory!r}: only 'orbit' is ported")
         cam = cfg["cam"]
         ds = cfg["data"].get("downsample", 1)
         self.H, self.W = cam["H"] // ds, cam["W"] // ds
@@ -136,7 +151,8 @@ class SyntheticDataset:
         self.props = props_on(self.device)
         self.rays_d = get_camera_rays(self.H, self.W, self.fx, self.fy,
                                       self.cx, self.cy, device=self.device)
-        self.poses = [orbit_pose(i, n_frames, span) for i in range(n_frames)]
+        self.poses = [trajectory_pose(trajectory, i, n_frames, span)
+                      for i in range(n_frames)]
         self._cache: Dict[int, torch.Tensor] = {}
 
     def gt_pose(self, index: int) -> np.ndarray:

@@ -1,9 +1,10 @@
 """Build and bind the CUDA kernels (nvcc -> shared library -> ctypes).
 
 The sources under ``mipsfusion_tpu_torch/csrc`` have a plain C interface,
-so they compile with nvcc alone in seconds (no PyTorch headers). The
-library is built at first use into ``mipsfusion_tpu_torch/build/``, named
-by a hash of the sources, and loaded with ctypes; every pointer and the
+so they compile with nvcc alone in seconds (no PyTorch headers), one nvcc
+process per source in parallel. The library is built at first use into
+``mipsfusion_tpu_torch/build/``, named by a hash of the sources, and
+loaded with ctypes; every pointer and the
 stream go as ``c_void_p``. Nothing here runs at import time.
 """
 
@@ -30,6 +31,7 @@ _SIGNATURES = {
     "mf_decoder_wt_size": [],
     "mf_decoder_backward": ([_P, _P, _P, _I] + [_P] * 10
                             + [_P, _P, _P, _I, _P, _P, _P, _I, _P]),
+    "mf_encode_forward": [_P, _P, _P, _P, _I, _P, _P],
     "mf_plane_backward": [_P, _P, _P, _I, _P, _P, _P, _P],
     "mf_x_backward": [_P, _P, _P, _P, _P, _I, _P, _P],
 }
@@ -60,24 +62,46 @@ def library_path() -> str:
 
 
 def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu into the shared library unless it exists."""
+    """Compile csrc/*.cu into the shared library unless it exists: one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [p for p in _sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = ([_nvcc()] + ARCH_FLAGS
-           + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v", "-o", tmp] + cu)
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        jobs = []
+        for src in cu:
+            obj = os.path.join(tmpdir, os.path.basename(src) + ".o")
+            cmd = ([_nvcc()] + ARCH_FLAGS
+                   + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                      "-Xptxas", "-v", "-c", "-o", obj, src])
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed, logs = [], []
+        for src, _, proc in jobs:
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} "
+                              f"({proc.returncode}):\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = os.path.join(tmpdir, "lib.so")
+        res = subprocess.run([_nvcc()] + ARCH_FLAGS
+                             + ["-shared", "-o", tmp]
+                             + [obj for _, obj, _ in jobs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     if verbose:
-        print(res.stderr)
+        print("\n".join(logs))
     return out
 
 

@@ -16,14 +16,15 @@ embed [E, N].
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
 from ..models.decoder import LAYERS, decoder_apply
 from . import _build
 from .encoding import frequency_encode, triplane_encode
-from .triplane_cuda import plane_backward, x_backward
+from .triplane_cuda import (encode_forward, plane_backward, plane_keys,
+                            planes_from_tensors, x_backward)
 
 Tree = Dict[str, Dict]
 
@@ -174,7 +175,7 @@ class FieldQueryT(torch.autograd.Function):
     def forward(ctx, xT, meta, *tensors):
         n_scales, n_freq, n_class = meta
         n_planes = len(tensors) - 2 * len(LAYERS)
-        planes = _planes_dict(tensors[:n_planes], n_scales)
+        planes = planes_from_tensors(tensors[:n_planes], n_scales)
         dec = _dec_tree(tensors[n_planes:])
         out, embed = field_forward(xT, planes, dec, n_scales, n_freq,
                                    n_class, return_embed=True)
@@ -188,7 +189,7 @@ class FieldQueryT(torch.autograd.Function):
         n_scales, n_freq, n_class = ctx.meta
         xT, embed, *tensors = ctx.saved_tensors
         n_planes = ctx.n_planes
-        planes = _planes_dict(tensors[:n_planes], n_scales)
+        planes = planes_from_tensors(tensors[:n_planes], n_scales)
         dec = _dec_tree(tensors[n_planes:])
         need = ctx.needs_input_grad
         need_planes = any(need[2:2 + n_planes])
@@ -199,7 +200,7 @@ class FieldQueryT(torch.autograd.Function):
         plane_grads = [None] * n_planes
         if need_planes:
             dp = plane_backward(xT, d_embed, planes, n_scales)
-            plane_grads = [dp[k] for k in _plane_keys(planes)]
+            plane_grads = [dp[k] for k in plane_keys(planes)]
         dec_grads = _dec_flat(d_dec) if need_dec else [None] * 2 * len(LAYERS)
         d_x = None
         if need[0]:
@@ -207,30 +208,18 @@ class FieldQueryT(torch.autograd.Function):
         return (d_x, None, *plane_grads, *dec_grads)
 
 
-def _plane_keys(planes) -> Tuple[str, ...]:
-    n = sum(1 for k in planes if k.startswith("s"))
-    return tuple(f"s{s}" for s in range(n)) + (("cp",) if "cp" in planes
-                                                 else ())
-
-
-def _planes_dict(tensors, n_scales: int) -> Dict[str, torch.Tensor]:
-    planes = {f"s{s}": tensors[s] for s in range(n_scales)}
-    if len(tensors) > n_scales:
-        planes["cp"] = tensors[n_scales]
-    return planes
-
-
 def field_query_T(params: Tree, xT: torch.Tensor, n_scales: int,
                   n_freq: int, n_class: int) -> torch.Tensor:
     """Differentiable query of params {"planes", "decoder"} at x [3, N]."""
     planes = params["planes"]
-    tensors = ([planes[k] for k in _plane_keys(planes)]
+    tensors = ([planes[k] for k in plane_keys(planes)]
                + _dec_flat(params["decoder"]))
     return FieldQueryT.apply(xT.contiguous(), (n_scales, n_freq, n_class),
                              *tensors)
 
 
 KERNEL_WRAPPERS = {
+    "encode_forward": encode_forward,
     "field_forward": field_forward,
     "decoder_backward": decoder_backward,
     "plane_backward": plane_backward,

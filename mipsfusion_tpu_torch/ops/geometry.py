@@ -167,3 +167,25 @@ def get_frame_surface_bbox(c2w: torch.Tensor, depth: torch.Tensor,
     xyz_min = torch.where(any_valid, xyz_min, torch.zeros_like(xyz_min))
     xyz_len = xyz_max - xyz_min
     return xyz_min + 0.5 * xyz_len, xyz_len
+
+
+def rays_to_world(rays_d_cam: torch.Tensor, c2w: torch.Tensor):
+    """Rotate camera-frame ray dirs [N, 3] by c2w [4, 4]; returns
+    (rays_o, rays_d)."""
+    rays_d = rays_d_cam @ c2w[:3, :3].T
+    return c2w[:3, 3].expand_as(rays_d), rays_d
+
+
+def pts_in_bbox(pts: torch.Tensor, xyz_min: torch.Tensor,
+                xyz_max: torch.Tensor) -> torch.Tensor:
+    """Strict containment of pts [N, 3] in boxes [M, 3] -> bool [N, M]."""
+    return ((pts[:, None, :] > xyz_min[None]).all(-1)
+            & (pts[:, None, :] < xyz_max[None]).all(-1))
+
+
+def project_to_pixel(K: torch.Tensor, pts_cam: torch.Tensor) -> torch.Tensor:
+    """Camera-frame points [..., 3] (OpenGL) -> pixel coords [..., 2]:
+    x is flipped before K is applied."""
+    flipped = torch.cat([-pts_cam[..., :1], pts_cam[..., 1:]], dim=-1)
+    uvw = flipped @ K.T
+    return uvw[..., :2] / (uvw[..., 2:3] + 1e-5)

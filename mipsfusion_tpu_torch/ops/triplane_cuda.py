@@ -1,13 +1,19 @@
-"""K3 (plane/CP-line gradients) and K4 (coordinate gradients).
+"""K0 (the encoding alone), K3 (plane/CP-line gradients) and K4
+(coordinate gradients), and the encode op ``TriplaneEncode``.
 
-Port of ``mipsfusion_tpu/ops/triplane_pallas.py``: ``plane_backward``
-replaces ``_fused_backward_plane`` and ``x_backward`` replaces
-``_fused_backward_x``. Each wrapper serves a CPU tensor with its plain
-PyTorch version and a CUDA tensor with the kernel in
+Port of ``mipsfusion_tpu/ops/triplane_pallas.py``: ``encode_forward``
+replaces ``_fused_forward``, ``plane_backward`` replaces
+``_fused_backward_plane``, ``x_backward`` replaces ``_fused_backward_x``
+and ``TriplaneEncode`` / ``triplane_encode`` the custom VJP of
+``triplane_encode_pallas``. Each wrapper serves a CPU tensor with its
+plain PyTorch version and a CUDA tensor with the kernel in
 ``csrc/triplane.cu`` (or raises); ``<wrapper>.launches`` counts kernel
 launches.
 
-Point-indexed arrays are points-minor: x [3, N], d_embed [E, N].
+The encode op takes and returns the reference's row layout (x [N, 3] ->
+[N, E]); K3 and K4 take points-minor arrays: x [3, N], d_embed [E, N].
+Like its JAX counterpart, the encode op has no caller on the SLAM path,
+where K1's ``return_embed`` output carries the encoding.
 """
 
 from __future__ import annotations
@@ -18,10 +24,90 @@ import torch
 
 from . import _build
 from .encoding import PLANE_AXES, line_lookup, taps
+from .encoding import triplane_encode as encode_forward_plain
 
 
 def _plane_list(planes: Dict[str, torch.Tensor], n_scales: int):
     return [planes[f"s{s}"] for s in range(n_scales)]
+
+
+# ----------------------------------------------------------------- K0 ----
+
+def encode_forward(x: torch.Tensor, planes: Dict[str, torch.Tensor],
+                   n_scales: int) -> torch.Tensor:
+    """Encode points x [N, 3] -> [N, E]: the plain composite
+    (``encoding.triplane_encode``) for a CPU tensor, K0 for a CUDA one."""
+    if x.device.type == "cpu":
+        return encode_forward_plain(planes, x, n_scales)
+    if n_scales != 2 or "cp" not in planes:
+        raise ValueError("encode_forward kernel: flagship field only "
+                         "(2 scales + CP)")
+    N = x.shape[0]
+    args = [_build.ptr(x, "x", (N, 3)),
+            _build.ptr(planes["s0"], "s0", _build.PLANE_SHAPES[0]),
+            _build.ptr(planes["s1"], "s1", _build.PLANE_SHAPES[1]),
+            _build.ptr(planes["cp"], "cp", _build.CP_SHAPE)]
+    out = torch.empty((N, _build.EMBED_DIM), device=x.device)
+    err = _build.lib().mf_encode_forward(*args, N, out.data_ptr(),
+                                         _build.stream())
+    _build.check(err, "encode_forward")
+    encode_forward.launches += 1
+    return out
+
+
+encode_forward.launches = 0
+
+
+class TriplaneEncode(torch.autograd.Function):
+    """[N, E] = encode(planes, x [N, 3]): K0 forward; the backward is K3
+    for the plane and CP gradients, then K4 for d_x, each only when
+    ``ctx.needs_input_grad`` asks for it. Inputs after ``n_scales`` are
+    the plane tensors (s0.., cp)."""
+
+    @staticmethod
+    def forward(ctx, x, n_scales, *tensors):
+        planes = planes_from_tensors(tensors, n_scales)
+        ctx.n_scales = n_scales
+        ctx.save_for_backward(x, *tensors)
+        return encode_forward(x, planes, n_scales)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *tensors = ctx.saved_tensors
+        planes = planes_from_tensors(tensors, ctx.n_scales)
+        need = ctx.needs_input_grad
+        xT = x.T.contiguous()
+        gT = g.T.contiguous()
+        plane_grads = [None] * len(tensors)
+        if any(need[2:]):
+            dp = plane_backward(xT, gT, planes, ctx.n_scales)
+            plane_grads = [dp[k] for k in plane_keys(planes)]
+        d_x = (x_backward(xT, gT, planes, ctx.n_scales).T
+               if need[0] else None)
+        return (d_x, None, *plane_grads)
+
+
+def plane_keys(planes):
+    """The plane keys in the order an autograd Function takes them:
+    s0.., then cp."""
+    n = sum(1 for k in planes if k.startswith("s"))
+    return [f"s{s}" for s in range(n)] + (["cp"] if "cp" in planes else [])
+
+
+def planes_from_tensors(tensors, n_scales: int) -> Dict[str, torch.Tensor]:
+    """The inverse of ``plane_keys``: tensors in that order -> planes."""
+    planes = {f"s{s}": tensors[s] for s in range(n_scales)}
+    if len(tensors) > n_scales:
+        planes["cp"] = tensors[n_scales]
+    return planes
+
+
+def triplane_encode(planes: Dict[str, torch.Tensor], x: torch.Tensor,
+                    n_scales: int) -> torch.Tensor:
+    """Differentiable encode of x [N, 3] -> [N, E] through K0, K3 and K4
+    (the counterpart of ``triplane_encode_pallas``)."""
+    return TriplaneEncode.apply(x.contiguous(), n_scales,
+                                *[planes[k] for k in plane_keys(planes)])
 
 
 # ----------------------------------------------------------------- K3 ----

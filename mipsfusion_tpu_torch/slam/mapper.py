@@ -1,18 +1,24 @@
 """Mapping: first-frame fit and local bundle adjustment.
 
 Port of ``mipsfusion_tpu/slam/mapper.py`` (``make_map_optimizer``,
-``init_submap_fit``, ``_kf_sampling_weights``, ``local_ba``). The map
-optimizer is one ``torch.optim.Adam`` with the reference's two groups
-(decoder: weight decay 1e-6 added to the gradient, eps 1e-8; planes and
-CP lines: eps 1e-15; betas (0.9, 0.99) for both); its state persists
-across the first-frame fit and every BA. Pose optimizers are fresh per BA
-(``tracker.MaskedAdam``, optax.adam's defaults).
+``init_submap_fit``, ``_kf_sampling_weights``, ``local_ba``,
+``switch_ba``). The map optimizer is one ``torch.optim.Adam`` with the
+reference's two groups (decoder: weight decay 1e-6 added to the gradient,
+eps 1e-8; planes and CP lines: eps 1e-15; betas (0.9, 0.99) for both);
+the active submap's persists across its first fit and every BA until the
+next switch, and background refinement makes a fresh one per round. Pose
+optimizers are fresh per BA (``tracker.MaskedAdam``, optax.adam's
+defaults).
+
+Random draws (ray sources, ray and pixel indices) come from a
+``torch.Generator``; ``local_ba`` and ``switch_ba`` also take them passed
+in (``draws``), so tests can feed both packages the same draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -118,42 +124,59 @@ class BAResult(NamedTuple):
     loss: torch.Tensor
 
 
+Draws = Sequence[Tuple[torch.Tensor, ...]]
+
+
+def _draw(w: torch.Tensor, n: int, sizes: Sequence[int],
+          generator: Optional[torch.Generator]) -> List[torch.Tensor]:
+    """n sources by the weights w, then n uniform indices below each of
+    ``sizes``."""
+    dev = w.device
+    return ([torch.multinomial(w, n, replacement=True, generator=generator)]
+            + [torch.randint(0, s, (n,), generator=generator, device=dev)
+               for s in sizes])
+
+
 def local_ba(field: sr.Field, opt: torch.optim.Adam, kf_rays: torch.Tensor,
-             kf_mask: torch.Tensor, first_kf: int, last_kf: torch.Tensor,
+             kf_mask: torch.Tensor, first_kf, last_kf: torch.Tensor,
              kf_poses_local: torch.Tensor, cur_rays: torch.Tensor,
              cur_pose_local: torch.Tensor, fcfg: sr.FieldConfig,
              consts: sr.FieldConsts, mcfg: MapConfig, lw: sr.LossWeights,
-             n_total: int, generator: Optional[torch.Generator] = None
-             ) -> BAResult:
-    """Joint map + keyframe-pose BA over the active submap's keyframes.
+             n_total: int, generator: Optional[torch.Generator] = None,
+             include_current: bool = True,
+             optim_cur: Optional[bool] = None,
+             draws: Optional[Draws] = None) -> BAResult:
+    """Joint map + keyframe-pose BA over one submap's keyframes.
 
-    kf_rays [K, R, 7] keyframe store; kf_mask [K] membership;
-    kf_poses_local [K, 4, 4]; cur_rays [P, 7] the current frame. Each
-    iteration draws n_total rays by the quota weights, steps the map every
+    kf_rays [K, R, 7] keyframe store; kf_mask [K] membership; first_kf
+    (int or device scalar) the submap's first keyframe; kf_poses_local
+    [K, 4, 4]; cur_rays [P, 7] the current frame, which gets no rays
+    without ``include_current`` (background refinement). Each iteration
+    draws n_total rays by the quota weights, steps the map every
     map_accum_step iterations, and steps the poses with the gradients
     accumulated over pose_accum_step iterations; the first keyframe and
-    slots outside the mask stay frozen."""
+    slots outside the mask stay frozen, the current frame too unless
+    ``optim_cur`` (default ``mcfg.optim_cur``). ``draws``: per iteration
+    (source slot, keyframe ray index, current-frame ray index)."""
     K, R, _ = kf_rays.shape
     dev = kf_rays.device
+    if optim_cur is None:
+        optim_cur = mcfg.optim_cur
     w = kf_sampling_weights(kf_mask, first_kf, last_kf, mcfg.sample,
-                            mcfg.pixels_cur)
+                            mcfg.pixels_cur if include_current else 0)
     pose_p = [torch.cat([matrix_to_quaternion(kf_poses_local[:, :3, :3]),
                          matrix_to_quaternion(cur_pose_local[:3, :3])[None]]),
               torch.cat([kf_poses_local[:, :3, 3], cur_pose_local[None, :3, 3]])]
     pose_opt = MaskedAdam(pose_p, [mcfg.lr_rot, mcfg.lr_trans])
     idx = torch.arange(K, device=dev)
     free = torch.cat([kf_mask & (idx != first_kf),
-                      torch.full((1,), mcfg.optim_cur, device=dev)]
+                      torch.full((1,), bool(optim_cur), device=dev)]
                      ).to(torch.float32)[:, None]
     accum = [torch.zeros_like(p) for p in pose_p]
     loss = None
     for i in range(mcfg.iters):
-        src = torch.multinomial(w, n_total, replacement=True,
-                                generator=generator)
-        ray_idx = torch.randint(0, R, (n_total,), generator=generator,
-                                device=dev)
-        cur_idx = torch.randint(0, cur_rays.shape[0], (n_total,),
-                                generator=generator, device=dev)
+        src, ray_idx, cur_idx = (draws[i] if draws is not None else _draw(
+            w, n_total, (R, cur_rays.shape[0]), generator))
         from_cur = src == K
         rays = torch.where(from_cur[:, None], cur_rays[cur_idx],
                            kf_rays[torch.clamp(src, max=K - 1), ray_idx])
@@ -177,3 +200,54 @@ def local_ba(field: sr.Field, opt: torch.optim.Adam, kf_rays: torch.Tensor,
     return BAResult(kf_quat=pose_p[0][:K], kf_trans=pose_p[1][:K],
                     cur_quat=pose_p[0][K], cur_trans=pose_p[1][K],
                     loss=loss.detach())
+
+
+def switch_ba(params, kf_rays: torch.Tensor, kf_mask: torch.Tensor,
+              kf_poses_local: torch.Tensor, ovlp_rays: torch.Tensor,
+              ovlp_pose_local: torch.Tensor, fcfg: sr.FieldConfig,
+              consts: sr.FieldConsts, lw: sr.LossWeights, lr_rot: float,
+              lr_trans: float, n_iters: int, n_total: int,
+              pose_accum_step: int = 5,
+              generator: Optional[torch.Generator] = None,
+              draws: Optional[Draws] = None):
+    """Refine ONLY the loop keyframe's pose against the switched-to
+    submap, on a frozen field (``params`` detached; the map optimizer is
+    never stepped), with a fresh pose Adam stepped every pose_accum_step
+    iterations on the accumulated gradient. Rays come uniformly from the
+    keyframes in kf_mask (poses kf_poses_local, fixed) plus a quota of
+    max(1/n, 1/5) of n_total from the loop keyframe's own rays ovlp_rays
+    [P, 7]. ``draws``: per iteration (source slot, keyframe ray index,
+    loop-keyframe ray index). Returns (pose [4, 4], last loss)."""
+    K, R, _ = kf_rays.shape
+    n = torch.clamp(kf_mask.sum(), min=1).to(torch.float32)
+    w_kf = kf_mask.to(torch.float32)
+    w_kf = w_kf / torch.clamp(w_kf.sum(), min=1.0)
+    w_ovlp = torch.clamp(n_total / n, min=n_total / 5.0) / n_total
+    w = torch.cat([w_kf, w_ovlp[None]])
+    p = [matrix_to_quaternion(ovlp_pose_local[:3, :3]),
+         ovlp_pose_local[:3, 3]]
+    pose_opt = MaskedAdam(p, [lr_rot, lr_trans])
+    kf_quats = matrix_to_quaternion(kf_poses_local[:, :3, :3])
+    kf_trans = kf_poses_local[:, :3, 3]
+    accum = [torch.zeros_like(t) for t in p]
+    loss = None
+    for i in range(n_iters):
+        src, ray_idx, ovlp_idx = (draws[i] if draws is not None else _draw(
+            w, n_total, (R, ovlp_rays.shape[0]), generator))
+        rays = torch.where((src == K)[:, None], ovlp_rays[ovlp_idx],
+                           kf_rays[torch.clamp(src, max=K - 1), ray_idx])
+        rot = p[0].detach().requires_grad_(True)
+        trans = p[1].detach().requires_grad_(True)
+        T = qt_to_matrix(torch.cat([kf_quats, rot[None]])[src],
+                         torch.cat([kf_trans, trans[None]])[src])
+        rays_dT = torch.einsum("nj,nij->in", rays[:, :3], T[:, :3, :3])
+        ret = sr.forward_losses_T(params, T[:, :3, 3].T, rays_dT,
+                                  rays[:, 3:6].T, rays[:, 6:7], fcfg, consts,
+                                  generator=generator)
+        loss = sr.total_loss(ret, lw)
+        g = torch.autograd.grad(loss, [rot, trans])
+        accum = [a + gg for a, gg in zip(accum, g)]
+        if (i + 1) % pose_accum_step == 0:
+            p = pose_opt.step(p, accum, True)
+            accum = [torch.zeros_like(a) for a in accum]
+    return qt_to_matrix(p[0], p[1]), loss.detach()

@@ -68,6 +68,51 @@ def test_backward_kernels_match_plain(card):
                            tc.x_backward_plain(x, d, planes, 2))[1] < 1e-4
 
 
+def test_encode_kernel_and_op_match_plain(card):
+    """K0 against the plain encode (relative 2e-5), and TriplaneEncode's
+    plane, CP and x gradients (K3, K4) against autograd of the plain
+    encode on interior points (relative 1e-4)."""
+    dev, prm = card
+    x = chip_smoke.test_points(20_000, 4, dev).T.contiguous()
+    planes = prm["planes"]
+    assert chip_smoke._err(tc.encode_forward(x, planes, 2),
+                           tc.encode_forward_plain(planes, x, 2))[1] < 2e-5
+    xi = chip_smoke.test_points(20_000, 5, dev, inside_only=True).T
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    G = torch.randn((xi.shape[0], 48), generator=gen, device=dev)
+
+    def grads(fn):
+        pl = {k: v.detach().clone().requires_grad_(True)
+              for k, v in planes.items()}
+        xx = xi.detach().clone().requires_grad_(True)
+        (fn(pl, xx, 2) * G).sum().backward()
+        return [pl[k].grad for k in ("s0", "s1", "cp")] + [xx.grad]
+
+    for a, b in zip(grads(tc.triplane_encode),
+                    grads(tc.encode_forward_plain)):
+        assert chip_smoke._err(a, b)[1] < 1e-4
+
+
+def test_encode_backward_launches_only_what_is_asked(card):
+    """TriplaneEncode's backward launches K3 only when a plane or the CP
+    lines need a gradient and K4 only when x does."""
+    dev, prm = card
+    xi = chip_smoke.test_points(4_096, 6, dev, inside_only=True).T
+    planes = {k: v.detach().clone() for k, v in prm["planes"].items()}
+    for x_grad, planes_grad, want in ((True, False, (0, 1)),
+                                      (False, True, (1, 0)),
+                                      (True, True, (1, 1))):
+        pl = {k: v.clone().requires_grad_(planes_grad)
+              for k, v in planes.items()}
+        xx = xi.detach().clone().requires_grad_(x_grad)
+        out = tc.triplane_encode(pl, xx, 2)
+        fc.reset_launch_counts()
+        out.sum().backward()
+        torch.cuda.synchronize()
+        assert (tc.plane_backward.launches, tc.x_backward.launches) == want
+
+
 def test_kernels_raise_on_other_widths(card):
     """A CUDA tensor launches the kernel or raises: a non-flagship width
     raises instead of falling back to the plain version."""
@@ -77,5 +122,7 @@ def test_kernels_raise_on_other_widths(card):
     planes["cp"] = planes["cp"][:, :, :32].contiguous()
     with pytest.raises(ValueError, match="flagship"):
         fc.field_forward(x, planes, prm["decoder"], *META)
+    with pytest.raises(ValueError):
+        tc.encode_forward(x.T.contiguous(), planes, 2)
     with pytest.raises(ValueError):
         fc.field_forward(x, prm["planes"], prm["decoder"], 2, 4, 5)

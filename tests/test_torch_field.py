@@ -260,6 +260,86 @@ def test_non_cpu_tensor_launches_or_raises(field):
     with pytest.raises(ValueError):
         tc.x_backward(x, torch.empty((16, 16), device="meta"),
                       tp["planes"], 2)
+    with pytest.raises(ValueError):
+        tc.encode_forward(torch.empty((16, 3), device="meta"),
+                          tp["planes"], 2)
     with pytest.raises(ValueError, match="CUDA"):
         _build.ptr(torch.zeros(4), "x")
 
+
+# --------------------------------------------------- TriplaneEncode (K0)
+
+def _encode_jax(p, x, fcfg, G):
+    def f(planes, xx):
+        return jnp.sum(j_triplane_encode(planes, xx, fcfg.tri) * G)
+    return jax.grad(f, argnums=(0, 1))(p["planes"], jnp.asarray(x))
+
+
+@pytest.mark.parametrize("part", ["value", "planes", "x"])
+def test_triplane_encode_matches_jax(field, part):
+    """TriplaneEncode on the CPU (plain K0 forward, plain K3 and K4
+    backward) against the JAX composite encode and jax.grad, on interior
+    points: values to 1e-5 relative, gradients to 1e-5 of each one's
+    scale."""
+    fcfg, p = field
+    x = points("inside")
+    G = (np.random.default_rng(4).normal(size=(x.shape[0], 16)) * 0.1
+         ).astype(np.float32)
+    tp = torch_tree(p, requires_grad=True)
+    xt = torch.tensor(x, requires_grad=True)
+    out = tc.triplane_encode(tp["planes"], xt, 2)
+    if part == "value":
+        ref = np.asarray(j_triplane_encode(p["planes"], jnp.asarray(x),
+                                           fcfg.tri))
+        assert out.shape == (x.shape[0], 16)
+        np.testing.assert_allclose(out.detach().numpy(), ref, rtol=1e-5,
+                                   atol=1e-6)
+        return
+    (out * torch.tensor(G)).sum().backward()
+    gp, gx = _encode_jax(p, x, fcfg, G)
+    pairs = ([(xt.grad.numpy(), np.asarray(gx))] if part == "x" else
+             [(tp["planes"][k].grad.numpy(), np.asarray(gp[k]))
+              for k in p["planes"]])
+    for a, b in pairs:
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max() + 1e-9
+
+
+def test_triplane_encode_backward_only_what_is_asked(field):
+    """With only x requiring a gradient, the backward runs K4 alone (the
+    wrappers' counters move only for a CUDA tensor, so this checks the
+    gradients' presence)."""
+    _, p = field
+    tp = torch_tree(p)
+    xt = torch.tensor(points("inside"), requires_grad=True)
+    tc.triplane_encode(tp["planes"], xt, 2).sum().backward()
+    assert xt.grad is not None and xt.grad.shape == xt.shape
+    assert all(v.grad is None for v in tp["planes"].values())
+
+
+@pytest.mark.slow
+def test_triplane_encode_matches_pallas_interpret(field, monkeypatch):
+    """Against triplane_encode_pallas run in Pallas interpret mode (as
+    tests/test_pallas_equivalence.py runs it): the TPU kernel casts the
+    planes and CP lines to bf16, so values and gradients agree to 2e-2
+    of their scale."""
+    from mipsfusion_tpu.ops import triplane_pallas as tpl
+    monkeypatch.setenv("MIPS_PALLAS_INTERPRET", "1")
+    monkeypatch.setattr(tpl, "_INTERPRET", True)
+    fcfg, p = field
+    x = points("inside")
+    G = (np.random.default_rng(5).normal(size=(x.shape[0], 16)) * 0.1
+         ).astype(np.float32)
+    jp = jax.tree.map(jnp.asarray, p["planes"])
+    ref, vjp = jax.vjp(lambda pl, xx: tpl.triplane_encode_pallas(
+        pl, xx, fcfg.tri.resolutions), jp, jnp.asarray(x))
+    gp, gx = vjp(jnp.asarray(G))
+    tp = torch_tree(p, requires_grad=True)
+    xt = torch.tensor(x, requires_grad=True)
+    out = tc.triplane_encode(tp["planes"], xt, 2)
+    (out * torch.tensor(G)).sum().backward()
+    pairs = [(out.detach().numpy(), np.asarray(ref)),
+             (xt.grad.numpy(), np.asarray(gx))]
+    pairs += [(tp["planes"][k].grad.numpy(), np.asarray(gp[k]))
+              for k in p["planes"]]
+    for a, b in pairs:
+        assert np.abs(a - b).max() <= 2e-2 * np.abs(b).max()

@@ -155,6 +155,9 @@ torch.set_num_threads(1)
 from mipsfusion_tpu_torch.config import flagship_orbit
 from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
 from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
+from mipsfusion_tpu_torch.config import flagship_outback
+from mipsfusion_tpu_torch.ops import triplane_cuda
+from mipsfusion_tpu_torch.slam import icp, manager, pose_graph
 cfg = flagship_orbit(use_manager=False)
 cfg["cam"].update(H=24, W=32, fx=16.0, fy=16.0, cx=15.5, cy=11.5)
 cfg["tracking"].update(iter=2, iter_RO=1, sample=48, ignore_edge_W=2,
