@@ -8,9 +8,10 @@ backward, plane backward, coordinate backward) are CUDA C++ for
 ``sm_90a`` under ``csrc/``, each with a plain PyTorch version beside it
 that serves CPU tensors.
 
-Precision: every kernel stores and computes in float32, and TF32 is off
-for matmuls and convolutions — the port's form of the reference's
-full-precision pose-math rule.
+Precision: every kernel stores in float32 and keeps float32 accuracy
+(K2's tensor-core products split each operand into two TF32 parts), and
+TF32 is off for PyTorch's matmuls and convolutions — the port's form of
+the reference's full-precision pose-math rule.
 """
 
 import torch

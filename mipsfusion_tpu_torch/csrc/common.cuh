@@ -10,7 +10,8 @@
 // w [in, out] row-major, b [out]. Point-indexed arrays are points-minor:
 // x [3, N], embed [48, N], out [10, N].
 //
-// Precision: float32 storage and float32 math throughout.
+// Precision: float32 storage and float32 accuracy throughout (K2's tensor-
+// core products split each operand into two TF32 parts, field.cu).
 
 #pragma once
 #include <cuda_runtime.h>

@@ -15,6 +15,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.geometry import get_camera_rays
 
 
@@ -131,8 +132,9 @@ def trajectory_pose(trajectory: str, i: int, n_frames: int,
 
 
 class SyntheticDataset:
-    """Frames rendered on ``device``: ``packed(i)`` is [H, W, 7] =
-    (direction, rgb, depth), cached; ``gt_pose(i)`` the numpy c2w."""
+    """Frames rendered on ``device`` (None: the card; ``"cpu"`` for a CPU
+    run): ``packed(i)`` is [H, W, 7] = (direction, rgb, depth), cached;
+    ``gt_pose(i)`` the numpy c2w."""
 
     def __init__(self, cfg: Dict, n_frames: int = 200,
                  trajectory: str = "orbit", span: float = 1.0, device=None):
@@ -143,8 +145,7 @@ class SyntheticDataset:
         self.cx, self.cy = cam["cx"] / ds, cam["cy"] / ds
         self.far = cam["far"]
         self.num_frames = n_frames
-        self.device = torch.device(device) if device is not None else \
-            torch.device("cpu")
+        self.device = resolve_device(device)
         syn = cfg.get("synthetic", {})
         self.room_half = torch.tensor(syn.get("room_half", [3.0, 2.2, 2.5]),
                                       dtype=torch.float32, device=self.device)

@@ -27,12 +27,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "mf_field_forward": [_P, _I] + [_P] * 3 + [_P] * 10 + [_P, _P, _I, _P],
-    "mf_decoder_ws_rows": [],
     "mf_decoder_wt_size": [],
     "mf_decoder_backward": ([_P, _P, _P, _I] + [_P] * 10
-                            + [_P, _P, _P, _I, _P, _P, _P, _I, _P]),
+                            + [_P, _P, _I, _P, _P, _P, _I, _P]),
     "mf_encode_forward": [_P, _P, _P, _P, _I, _P, _P],
-    "mf_plane_backward": [_P, _P, _P, _I, _P, _P, _P, _P],
+    "mf_plane_backward_acc_size": [],
+    "mf_plane_backward": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     "mf_x_backward": [_P, _P, _P, _P, _P, _I, _P, _P],
 }
 

@@ -130,18 +130,17 @@ def decoder_backward(xT: torch.Tensor, g: torch.Tensor, embed: torch.Tensor,
              N] + _dec_ptrs(dec))
     dev = xT.device
     wt = torch.empty((lib.mf_decoder_wt_size(),), device=dev)
-    ws = torch.empty((lib.mf_decoder_ws_rows(), N), device=dev)
     sizes = [(w[0] + 1) * w[1] for w, _ in _build.DECODER_SHAPES]
     total = sum(sizes)
-    # split the point axis into partial sums of >= 1024 points each
-    splits = max(1, min(128, N // 1024))
-    partials = torch.empty((splits, total), device=dev)
-    grads = torch.empty((total,), device=dev)
+    # one partial sum per block of the persistent grid (a block per SM)
+    splits = torch.cuda.get_device_properties(dev).multi_processor_count
+    partials = (torch.zeros((splits, total), device=dev) if weight_grads
+                else wt)
+    grads = torch.empty((total,), device=dev) if weight_grads else wt
     d_x = torch.empty((3, N), device=dev)
     d_embed = torch.empty((_build.EMBED_DIM, N), device=dev)
     err = lib.mf_decoder_backward(
-        *args, wt.data_ptr(), ws.data_ptr(), partials.data_ptr(), splits,
-        d_x.data_ptr(),
+        *args, wt.data_ptr(), partials.data_ptr(), splits, d_x.data_ptr(),
         d_embed.data_ptr(), grads.data_ptr(), int(weight_grads),
         _build.stream())
     _build.check(err, "decoder_backward")

@@ -164,12 +164,18 @@ def plane_backward(xT: torch.Tensor, d_embed: torch.Tensor,
     args = [_build.ptr(xT, "x", (3, N)),
             _build.ptr(d_embed, "d_embed", (_build.EMBED_DIM, N)),
             _build.ptr(cp, "cp", _build.CP_SHAPE)]
-    d_s0 = torch.zeros(_build.PLANE_SHAPES[0], device=xT.device)
-    d_s1 = torch.zeros(_build.PLANE_SHAPES[1], device=xT.device)
-    d_cp = torch.zeros(_build.CP_SHAPE, device=xT.device)
-    err = _build.lib().mf_plane_backward(
+    lib = _build.lib()
+    dev = xT.device
+    d_s0 = torch.empty(_build.PLANE_SHAPES[0], device=dev)
+    d_s1 = torch.empty(_build.PLANE_SHAPES[1], device=dev)
+    d_cp = torch.empty(_build.CP_SHAPE, device=dev)
+    # the fixed-point accumulators and the magnitude maxima (csrc: K3)
+    acc = torch.zeros((lib.mf_plane_backward_acc_size(),), dtype=torch.int64,
+                      device=dev)
+    mx = torch.zeros((3,), dtype=torch.int32, device=dev)
+    err = lib.mf_plane_backward(
         args[0], args[1], args[2], N, d_s0.data_ptr(), d_s1.data_ptr(),
-        d_cp.data_ptr(), _build.stream())
+        d_cp.data_ptr(), acc.data_ptr(), mx.data_ptr(), _build.stream())
     _build.check(err, "plane_backward")
     plane_backward.launches += 1
     return {"s0": d_s0, "s1": d_s1, "cp": d_cp}

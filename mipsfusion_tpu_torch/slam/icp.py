@@ -3,10 +3,10 @@
 Port of ``mipsfusion_tpu/slam/icp.py``: normals by k-nearest-neighbour PCA
 (one batched 3x3 ``eigh``), brute-force nearest neighbours over the full
 [N, M] distance matrix (the clouds are a few thousand subsampled keyframe
-points), and a fixed number of undamped Gauss-Newton steps with masked
-correspondences. The outputs mirror the open3d contract the reference
-consumes: the rigid transform and the count of inliers within the
-threshold.
+points), and a fixed number of Gauss-Newton steps with masked
+correspondences, undamped unless asked. The outputs mirror the open3d
+contract the reference consumes: the rigid transform and the count of
+inliers within the threshold.
 """
 
 from __future__ import annotations
@@ -60,10 +60,17 @@ def _inlier_stats(T, src, src_valid, dst, dst_valid, threshold) -> ICPResult:
 def icp_point_to_plane(src: torch.Tensor, src_valid: torch.Tensor,
                        dst: torch.Tensor, dst_valid: torch.Tensor,
                        dst_normals: torch.Tensor, threshold: float,
-                       n_iters: int = 20) -> ICPResult:
+                       n_iters: int = 20,
+                       rel_damping: float = 0.0) -> ICPResult:
     """Register src [N, 3] onto dst [M, 3] minimizing the point-to-plane
     error over nearest-neighbour correspondences within ``threshold``.
-    The residual does not depend on a normal's sign."""
+    The residual does not depend on a normal's sign.
+
+    ``rel_damping`` > 0 adds Tikhonov damping relative to the normal
+    equations' own scale (lambda = rel_damping * tr(H) / 6), as the JAX
+    function's argument of that name: a direction the correspondences
+    barely constrain (sliding along the scene's dominant planes) then
+    takes almost no step instead of wandering on noise."""
     T = torch.eye(4, dtype=src.dtype, device=src.device)
     eye6 = torch.eye(6, dtype=src.dtype, device=src.device)
     for _ in range(n_iters):
@@ -74,7 +81,8 @@ def icp_point_to_plane(src: torch.Tensor, src_valid: torch.Tensor,
         r = ((p - dst[j]) * n).sum(-1)
         J = torch.cat([n, torch.linalg.cross(p, n)], dim=-1)     # [N, 6]
         Jw = J * w[:, None]
-        H = Jw.T @ J + 1e-6 * eye6
+        H = Jw.T @ J
+        H = H + (1e-6 + rel_damping * torch.trace(H) / 6.0) * eye6
         xi = -torch.linalg.solve(H, Jw.T @ r)
         T = se3_exp(xi) @ T
     return _inlier_stats(T, src, src_valid, dst, dst_valid, threshold)

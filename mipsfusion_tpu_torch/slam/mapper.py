@@ -92,6 +92,15 @@ def init_submap_fit(field: sr.Field, opt: torch.optim.Adam,
     return loss.detach()
 
 
+def pose_rows(T: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """T[src] for poses T [K, 4, 4] and a slot per ray src [N], as a
+    one-hot product: exact, and its gradient is a matrix product summed in
+    a fixed order. The indexing form's gradient scatters with float
+    atomics on the card, which makes every run's poses differ."""
+    onehot = torch.nn.functional.one_hot(src, T.shape[0]).to(T.dtype)
+    return (onehot @ T.reshape(T.shape[0], 16)).reshape(-1, 4, 4)
+
+
 def kf_sampling_weights(kf_mask: torch.Tensor, first_kf: int,
                         last_kf: torch.Tensor, sample: int,
                         pixels_cur: float) -> torch.Tensor:
@@ -182,7 +191,7 @@ def local_ba(field: sr.Field, opt: torch.optim.Adam, kf_rays: torch.Tensor,
                            kf_rays[torch.clamp(src, max=K - 1), ray_idx])
         rot = pose_p[0].detach().requires_grad_(True)
         trans = pose_p[1].detach().requires_grad_(True)
-        T = qt_to_matrix(rot, trans)[src]                         # [N, 4, 4]
+        T = pose_rows(qt_to_matrix(rot, trans), src)              # [N, 4, 4]
         rays_dT = torch.einsum("nj,nij->in", rays[:, :3], T[:, :3, :3])
         rays_oT = T[:, :3, 3].T
         ret = sr.forward_losses_T(field.params(), rays_oT, rays_dT,
@@ -238,8 +247,8 @@ def switch_ba(params, kf_rays: torch.Tensor, kf_mask: torch.Tensor,
                            kf_rays[torch.clamp(src, max=K - 1), ray_idx])
         rot = p[0].detach().requires_grad_(True)
         trans = p[1].detach().requires_grad_(True)
-        T = qt_to_matrix(torch.cat([kf_quats, rot[None]])[src],
-                         torch.cat([kf_trans, trans[None]])[src])
+        T = pose_rows(qt_to_matrix(torch.cat([kf_quats, rot[None]]),
+                                   torch.cat([kf_trans, trans[None]])), src)
         rays_dT = torch.einsum("nj,nij->in", rays[:, :3], T[:, :3, :3])
         ret = sr.forward_losses_T(params, T[:, :3, 3].T, rays_dT,
                                   rays[:, 3:6].T, rays[:, 6:7], fcfg, consts,

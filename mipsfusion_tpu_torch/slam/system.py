@@ -33,8 +33,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from mipsfusion_tpu.eval.ate import pose_evaluation
-
+from ..device import resolve_device
+from ..eval.ate import pose_evaluation
 from ..models import scene_rep as sr
 from ..ops.geometry import (get_frame_surface_bbox, pose_inverse,
                             project_to_pixel, pts_in_bbox, qt_to_matrix,
@@ -46,6 +46,13 @@ from . import state as slam_state
 from .state import SlamState
 
 _STAGE_SEED = {"track": 1, "ba": 2, "init": 3, "refine": 4, "switch": 5}
+
+# Relative damping of the loop-closure ICP (icp_point_to_plane). The JAX
+# package solves undamped; on the flagship outback's forced switch back
+# the clouds are nearly degenerate (walls and floor seen from 1-2 m
+# apart) and the undamped solve slides the pose along them by 5-35 cm
+# (tests/test_torch_icp_damping.py).
+SWITCH_ICP_DAMPING = 0.01
 
 
 # ---------------------------------------------------------------------------
@@ -201,14 +208,15 @@ def switch_icp(st: SlamState, use_ids, depth, rays_d, mo_id: int,
                active_id: int, cur_frame: int, kf_frames, rr_src, cc_src,
                sub_dst, sub_incl, threshold: float, min_trans: float,
                n_per: int, n_incl: int, keyframe_every: int,
-               n_iters: int = 15):
+               n_iters: int = 15, rel_damping: float = 0.0):
     """ICP rectification of the switch pose. Target: the rays sub_dst
     [k, n_per] of the selected keyframes use_ids [k] in mo_id's frame.
     Source: the current keyframe's grid rays at its pose carried into
     mo_id's frame, plus the last n_incl keyframes' stored rays through
     both anchors. Returns (n_inliers, pose_final, pose_local_ini);
     pose_final keeps the initial pose when the correction moves by
-    min_trans or more (large corrections are distrusted)."""
+    min_trans or more (large corrections are distrusted). ``rel_damping``
+    goes to ``icp_point_to_plane`` (0: the JAX package's undamped solve)."""
     anchor_prev = _anchor_of(st, active_id)
     anchor_aft = _anchor_of(st, mo_id)
     pose_local_ini = pose_inverse(anchor_aft) @ (anchor_prev
@@ -236,7 +244,7 @@ def switch_icp(st: SlamState, use_ids, depth, rays_d, mo_id: int,
     normals = icp_mod.estimate_normals(dst_pts, k=10)
     res = icp_mod.icp_point_to_plane(
         torch.cat(src_pts), torch.cat(src_valid), dst_pts, dst_valid,
-        normals, threshold, n_iters=n_iters)
+        normals, threshold, n_iters=n_iters, rel_damping=rel_damping)
     eye = torch.eye(4, dtype=res.transform.dtype, device=res.transform.device)
     rel = torch.where(torch.linalg.norm(res.transform[:3, 3]) >= min_trans,
                       eye, res.transform)
@@ -249,7 +257,8 @@ def overlap_verify_icp(st: SlamState, depth, rays_d, pose_world,
                        threshold: float, min_trans: float, min_count: int,
                        k: int, edge: int, H: int, W: int, n_per: int,
                        n_incl: int, keyframe_every: int, R: int,
-                       n_iters: int = 15) -> Dict[str, torch.Tensor]:
+                       n_iters: int = 15, rel_damping: float = 0.0
+                       ) -> Dict[str, torch.Tensor]:
     """``overlap_verify``, the selection of the keyframes that see more
     than min_count overlap points (all valid ones if none does), and
     ``switch_icp`` on them, on the device. The selected ids are stably
@@ -275,7 +284,7 @@ def overlap_verify_icp(st: SlamState, depth, rays_d, pose_world,
     n_in, pose_final, pose_ini = switch_icp(
         st, use_ids, depth, rays_d, mo_id, active_id, cur_frame, kf_frames,
         rr_src, cc_src, sub_dst, sub_incl, threshold, min_trans, n_per,
-        n_incl, keyframe_every, n_iters)
+        n_incl, keyframe_every, n_iters, rel_damping)
     ver.update({"n_inliers": n_in, "pose_final": pose_final,
                 "pose_ini": pose_ini})
     return ver
@@ -286,7 +295,8 @@ def overlap_verify_icp(st: SlamState, depth, rays_d, pose_world,
 # ---------------------------------------------------------------------------
 
 class MIPSFusionTorch:
-    """Online multi-implicit-submap neural RGB-D SLAM in PyTorch."""
+    """Online multi-implicit-submap neural RGB-D SLAM in PyTorch, on
+    ``device`` (None: the card; ``"cpu"`` for a CPU run)."""
 
     def __init__(self, config: Dict, dataset, device=None):
         m = config["mapping"]
@@ -295,8 +305,7 @@ class MIPSFusionTorch:
                 "mapping.global_BA.sdf_consistency is not ported")
         self.config = config
         self.dataset = dataset
-        self.device = torch.device(device) if device is not None else \
-            torch.device("cpu")
+        self.device = resolve_device(device)
         self.H, self.W = dataset.H, dataset.W
 
         self.fcfg = sr.FieldConfig.from_dict(config)
@@ -657,7 +666,8 @@ class MIPSFusionTorch:
             self.sw_align_threshold, self.sw_min_trans, min_count, k=k,
             edge=edge, H=self.H, W=self.W, n_per=max(1, self.icp_dst_n // k),
             n_incl=self.sw_including_last,
-            keyframe_every=self.keyframe_every, R=R))
+            keyframe_every=self.keyframe_every, R=R,
+            rel_damping=SWITCH_ICP_DAMPING))
         if int(ver["n_related"]) == 0 or \
                 int(ver["n_valid"]) < self.manager.cfg.min_ovlp_pts:
             return False, None

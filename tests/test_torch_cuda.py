@@ -43,7 +43,8 @@ def test_forward_kernels_match_plain(card):
 
 def test_backward_kernels_match_plain(card):
     """K2 with a cotangent that is zero near ReLU kinks (see
-    chip_smoke.kink_free), K3 (float32 atomics) and K4, relative 1e-4."""
+    chip_smoke.kink_free), K3 (fixed-point atomics) and K4, relative
+    1e-4."""
     dev, prm = card
     x = chip_smoke.test_points(20_000, 2, dev)
     planes, dec = prm["planes"], prm["decoder"]
@@ -66,6 +67,60 @@ def test_backward_kernels_match_plain(card):
         assert chip_smoke._err(k3[k], r3[k])[1] < 1e-4
     assert chip_smoke._err(tc.x_backward(x, d, planes, 2),
                            tc.x_backward_plain(x, d, planes, 2))[1] < 1e-4
+
+
+def test_backward_kernels_match_plain_on_ray_points(card):
+    """K2 (with weight gradients and in the GO form without them), K3 and
+    K4 on ray-ordered points, where a warp's lanes share cells
+    (chip_smoke.ray_points), relative 1e-4."""
+    dev, prm = card
+    x = chip_smoke.ray_points(300, 75, 3, dev)
+    planes, dec = prm["planes"], prm["decoder"]
+    _, emb = fc.field_forward(x, planes, dec, *META, return_embed=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    g = torch.randn((10, x.shape[1]), generator=gen, device=dev) * 0.1
+    g, _ = chip_smoke.kink_free(g, x, emb, dec)
+    r2 = fc.decoder_backward_plain(x, g, emb, dec, 8, 5)
+    k2 = fc.decoder_backward(x, g, emb, dec, 8, 5)
+    assert chip_smoke._err(k2[0], r2[0])[1] < 1e-4
+    assert chip_smoke._err(k2[1], r2[1])[1] < 1e-4
+    for n in k2[2]:
+        for k in ("w", "b"):
+            assert chip_smoke._err(k2[2][n][k], r2[2][n][k])[1] < 1e-4
+    k2 = fc.decoder_backward(x, g, emb, dec, 8, 5, weight_grads=False)
+    assert k2[2] is None
+    assert chip_smoke._err(k2[0], r2[0])[1] < 1e-4
+    assert chip_smoke._err(k2[1], r2[1])[1] < 1e-4
+    d = torch.randn((48, x.shape[1]), generator=gen, device=dev) * 0.1
+    k3 = tc.plane_backward(x, d, planes, 2)
+    r3 = tc.plane_backward_plain(x, d, planes, 2)
+    for k in k3:
+        assert chip_smoke._err(k3[k], r3[k])[1] < 1e-4
+    assert chip_smoke._err(tc.x_backward(x, d, planes, 2),
+                           tc.x_backward_plain(x, d, planes, 2))[1] < 1e-4
+
+
+def test_k2_k3_give_the_same_bits_every_call(card):
+    """K2 (fixed-order partial sums) and K3 (fixed-point integer atomics)
+    return bitwise equal results when called twice on ray-ordered points,
+    where K3's atomics contend most."""
+    dev, prm = card
+    x = chip_smoke.ray_points(300, 75, 4, dev)
+    planes, dec = prm["planes"], prm["decoder"]
+    _, emb = fc.field_forward(x, planes, dec, *META, return_embed=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    g = torch.randn((10, x.shape[1]), generator=gen, device=dev) * 0.1
+    d = torch.randn((48, x.shape[1]), generator=gen, device=dev) * 0.1
+    a, b = (fc.decoder_backward(x, g, emb, dec, 8, 5) for _ in range(2))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for n in a[2]:
+        for k in ("w", "b"):
+            assert torch.equal(a[2][n][k], b[2][n][k])
+    a, b = (tc.plane_backward(x, d, planes, 2) for _ in range(2))
+    for k in a:
+        assert torch.equal(a[k], b[k])
 
 
 def test_encode_kernel_and_op_match_plain(card):

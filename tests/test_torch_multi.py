@@ -63,7 +63,7 @@ def test_trajectory_matches_jax(trajectory, span):
     n = 30
     jd = JDataset(_cam(), n_frames=n, trajectory=trajectory, span=span)
     td = SyntheticDataset(_cam(), n_frames=n, trajectory=trajectory,
-                          span=span)
+                          span=span, device="cpu")
     for i in range(n):
         np.testing.assert_allclose(td.gt_pose(i), jd.gt_pose(i), atol=1e-7)
     for frame in (0, 17):
@@ -231,8 +231,9 @@ def test_motion_model_restarts_after_switch(monkeypatch, i, last_switch):
     after the last switch on (a switch re-expresses poses in another
     local frame): JAX's rule (i - last_switch_frame) >= 2."""
     cfg = corridor_config(12)
-    ds = SyntheticDataset(cfg, n_frames=12, trajectory="corridor", span=0.55)
-    slam = MIPSFusionTorch(cfg, dataset=ds)
+    ds = SyntheticDataset(cfg, n_frames=12, trajectory="corridor", span=0.55,
+                          device="cpu")
+    slam = MIPSFusionTorch(cfg, dataset=ds, device="cpu")
     slam.state.last_switch_frame = last_switch
     seen = []
 
@@ -254,8 +255,9 @@ def test_port_multi_submap_corridor():
     the keyframe bindings mirror the device table."""
     n = 20
     cfg = corridor_config(n)
-    ds = SyntheticDataset(cfg, n_frames=n, trajectory="corridor", span=0.55)
-    slam = MIPSFusionTorch(cfg, dataset=ds)
+    ds = SyntheticDataset(cfg, n_frames=n, trajectory="corridor", span=0.55,
+                          device="cpu")
+    slam = MIPSFusionTorch(cfg, dataset=ds, device="cpu")
     res = slam.run(verbose=False)
     calls = slam.stage_calls
     assert res["n_submaps"] >= 2, res
@@ -286,8 +288,9 @@ def test_port_outback_loop_closure():
     from test_torch_slice import _triplane
     cfg = _triplane(loop_config(220))
     cfg["use_manager"] = True
-    ds = SyntheticDataset(cfg, n_frames=220, trajectory="outback", span=1.0)
-    slam = MIPSFusionTorch(cfg, dataset=ds)
+    ds = SyntheticDataset(cfg, n_frames=220, trajectory="outback", span=1.0,
+                          device="cpu")
+    slam = MIPSFusionTorch(cfg, dataset=ds, device="cpu")
     res = slam.run(verbose=False)
     assert any(flag == 1 for _, flag in slam.switch_events), \
         slam.switch_events

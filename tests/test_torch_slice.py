@@ -121,8 +121,9 @@ def test_port_run_smoke():
     tracking must not diverge (the slow test asserts millimetres)."""
     n = 12
     cfg = _triplane(smoke_config(n))
-    ds = SyntheticDataset(cfg, n_frames=n, trajectory="orbit", span=n / 400)
-    slam = MIPSFusionTorch(cfg, dataset=ds)
+    ds = SyntheticDataset(cfg, n_frames=n, trajectory="orbit", span=n / 400,
+                          device="cpu")
+    slam = MIPSFusionTorch(cfg, dataset=ds, device="cpu")
     res = slam.run(verbose=False)
     assert res["absolute_translational_error.rmse"] < 0.10, res
     assert res["n_submaps"] == 1
@@ -138,14 +139,15 @@ def test_port_run_smoke():
 def test_port_run_tiny_24_frames():
     n = 24
     cfg = _triplane(tiny_config(n))
-    ds = SyntheticDataset(cfg, n_frames=n, trajectory="orbit", span=n / 200)
-    res = MIPSFusionTorch(cfg, dataset=ds).run(verbose=False)
+    ds = SyntheticDataset(cfg, n_frames=n, trajectory="orbit", span=n / 200,
+                          device="cpu")
+    res = MIPSFusionTorch(cfg, dataset=ds, device="cpu").run(verbose=False)
     assert res["absolute_translational_error.rmse"] < 0.02, res
 
 
 def test_port_imports_no_jax():
     """Importing the port and running its CPU slice loads neither jax nor
-    optax (the only reference-package import is the numpy-only ATE)."""
+    optax, nor any module of the JAX package."""
     code = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
@@ -167,10 +169,12 @@ cfg["mapping"].update(sample=32, pixels_cur=16, iters=2, first_iters=3,
                       keyframe_every=2, map_every=2)
 cfg["sampling"].update(kf_n_rays_h=6, kf_n_rays_w=8)
 cfg["training"].update(n_samples_d=4, n_range_d=3)
-ds = SyntheticDataset(cfg, n_frames=3, trajectory="orbit", span=0.01)
-res = MIPSFusionTorch(cfg, dataset=ds).run(verbose=False)
+ds = SyntheticDataset(cfg, n_frames=3, trajectory="orbit", span=0.01,
+                      device="cpu")
+res = MIPSFusionTorch(cfg, dataset=ds, device="cpu").run(verbose=False)
 assert res["n_submaps"] == 1
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "optax")]
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "optax", "mipsfusion_tpu")]
 assert not bad, bad
 print("OK")
 """

@@ -26,7 +26,7 @@ def datasets():
     n = 12
     return (JDataset(_cfg(), n_frames=n, trajectory="orbit", span=n / 200),
             SyntheticDataset(_cfg(), n_frames=n, trajectory="orbit",
-                             span=n / 200))
+                             span=n / 200, device="cpu"))
 
 
 def test_orbit_poses(datasets):
