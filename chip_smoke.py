@@ -6,16 +6,24 @@ Phases (any failure raises; the exit code is then non-zero):
   1. device  - require CUDA; print nvidia-smi's name and power limit;
   2. build   - compile the field kernels (mipsfusion_tpu_torch/csrc) with
                nvcc for sm_90a, one process per source; count the tensor-
-               core (HMMA) instructions of K2's kernels in the SASS
-               (cuobjdump -sass, where the toolkit has it);
+               core (HMMA) instructions of K1's and K2's kernels in the
+               SASS (cuobjdump -sass, where the toolkit has it);
   3. kernels - each of K0-K4 against its plain PyTorch version at the SLAM
                loop's shapes (flagship widths, params from a fixed seed,
                points inside, outside and on the edge of [0, 1]^3): max
-               abs / relative error beside the tolerance, median times;
-               then K2, K3 and K4 again on ray-ordered points (2600 rays x
-               75 samples, each ray's samples contiguous, as the loop lays
-               them out), and K2 without weight gradients at the GO shape;
-               K2 and K3 called twice give the same bits;
+               abs / relative error beside the tolerance, median times
+               (device time of queued calls, and the time of one call
+               launched on an idle device, wrapper included);
+               K1 also at the GO shape on ray-ordered points and at the
+               refine shape; then K2, K3 and K4 again on ray-ordered
+               points (2600 rays x 75 samples, each ray's samples
+               contiguous, as the loop lays them out), K4 with the PE's
+               share of d_x added, and K2 without weight gradients at the
+               GO shape; K1 and K4 at point counts that are no multiple of
+               a tile (195,001 and 63); K1's packed weights against the
+               plain packer; K1-K4 called twice give the same bits; a
+               SHA-256 of K2's and K3's outputs on fixed inputs (two trees
+               with the same K2 and K3 print the same digests);
   4. autograd - FieldQueryT's and TriplaneEncode's gradients against the
                plain path;
   5. orbit   - 45 frames of the flagship orbit at full budgets,
@@ -39,6 +47,10 @@ runs phases 1, 2 and then only phase 6, once per seed (repeatability),
 with the manager's predicates, the loop closures and the pose errors
 printed at every keyframe; --outback-spawn pins the run to the branch
 that opens its second submap at that keyframe.
+
+    python3 chip_smoke.py --kernels-only
+
+runs phases 1-4 alone (about a minute).
 """
 
 from __future__ import annotations
@@ -108,13 +120,49 @@ def phase_build(check_hmma: bool = True):
     if hmma is None:
         print("sass: cuobjdump not found, HMMA count not taken")
         return
-    k2 = {k: v for k, v in hmma.items() if "decoder_bwd" in k}
-    print("sass HMMA instructions per K2 kernel: " + json.dumps(k2))
-    if not k2 or not all(v > 0 for v in k2.values()):
-        _fail(f"K2 kernels without tensor-core instructions: {k2}")
+    for what, key, n_min in (("K2", "decoder_bwd", 2),
+                             ("K1", "field_forward_kernel", 3)):
+        found = {k: v for k, v in hmma.items() if key in k}
+        print(f"sass HMMA instructions per {what} kernel: "
+              + json.dumps(found))
+        if len(found) < n_min or not all(v > 0 for v in found.values()):
+            _fail(f"{what} kernels without tensor-core instructions: "
+                  f"{found}")
 
 
-def _time_ms(fn, reps: int = 10) -> float:
+def _time_ms(fn, reps: int = 10, groups: int = 3) -> float:
+    """Device time of one call in ms: the median over ``groups`` of the
+    time of ``reps`` calls in a row between two CUDA events, over ``reps``.
+    A spin kernel goes first, so that the host has enqueued the calls
+    before the device starts on them: the time is the device's, without
+    the wrapper's host time (tens of microseconds, more than the smaller
+    kernels take)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(groups):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
+
+
+# the spin before a timed group: ~3 ms at the card's clock, longer than the
+# host takes to enqueue ten calls of a wrapper
+SPIN_CYCLES = 5_000_000
+
+
+def _time_idle_ms(fn, reps: int = 10) -> float:
+    """Median time of one call launched on an idle device, between two
+    CUDA events: the wrapper's host time and the launch are inside it, as
+    a host-bound loop pays them."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -257,7 +305,7 @@ REPLACES = {
 }
 SOURCE = {
     "encode_forward": "mipsfusion_tpu_torch/csrc/triplane.cu",
-    "field_forward": "mipsfusion_tpu_torch/csrc/field.cu",
+    "field_forward": "mipsfusion_tpu_torch/csrc/field_forward.cu",
     "decoder_backward": "mipsfusion_tpu_torch/csrc/field.cu",
     "plane_backward": "mipsfusion_tpu_torch/csrc/triplane.cu",
     "x_backward": "mipsfusion_tpu_torch/csrc/triplane.cu",
@@ -284,7 +332,8 @@ FLOP_PT = {"encode_forward": (0, 632),
            "field_forward_sdf": (2 * 29_696, 632),
            "decoder_backward": (2 * (37_888 + 38_233 + 38_625), 0),
            "decoder_backward_go": (2 * (37_888 + 38_233), 0),
-           "plane_backward": (0, 960), "x_backward": (0, 1_040)}
+           "plane_backward": (0, 960), "x_backward": (0, 1_040),
+           "x_backward_add": (0, 1_043)}
 TABLE_BYTES = (3 * 32 * 32 * 4 + 3 * 64 * 64 * 4 + 3 * 384 * 40) * 4
 WEIGHT_BYTES = 38_625 * 4
 # bytes per point (each input read once, each output written once) and
@@ -295,7 +344,8 @@ BYTES = {"encode_forward": (12 + 192, TABLE_BYTES),
          "decoder_backward": (12 + 40 + 192 + 12 + 192, 2 * WEIGHT_BYTES),
          "decoder_backward_go": (12 + 40 + 192 + 12 + 192, WEIGHT_BYTES),
          "plane_backward": (12 + 192, TABLE_BYTES + 3 * 384 * 40 * 4),
-         "x_backward": (12 + 192 + 12, TABLE_BYTES)}
+         "x_backward": (12 + 192 + 12, TABLE_BYTES),
+         "x_backward_add": (12 + 192 + 12 + 12, TABLE_BYTES)}
 
 
 def bound(kind: str, n: int):
@@ -318,14 +368,17 @@ def phase_kernels():
     meta = (2, 8, 5)
     rows = {}
 
-    def record(name, label, errs, ms, plain_ms, n, kind=None):
-        """errs: {output name: (max abs error, relative error)}"""
+    def record(name, label, errs, fn, plain_ms, n, kind=None):
+        """errs: {output name: (max abs error, relative error)}; fn: the
+        kernel's call, timed here both ways."""
+        ms, idle_ms = _time_ms(fn), _time_idle_ms(fn)
         part, (worst_abs, worst) = max(errs.items(), key=lambda kv: kv[1][1])
         tol = TOL[name]
         b_ms, b_by = bound(kind or label.split("@")[0], n)
         print(f"{label:24s} N={n:7d} max_abs={worst_abs:.3e} "
               f"max_rel={worst:.3e} ({part}) tol_rel={tol:.0e} "
-              f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms "
+              f"kernel={ms:.3f} ms (launched idle {idle_ms:.3f} ms) "
+              f"plain={plain_ms:.3f} ms "
               f"bound={b_ms:.3f} ms ({b_by})")
         if not worst <= tol:
             _fail(f"{label}: relative error {worst:.3e} > {tol:.0e} in "
@@ -334,10 +387,12 @@ def phase_kernels():
                                    "source": SOURCE[name],
                                    "replaces": REPLACES[name],
                                    "max_abs_err": 0.0, "ms": {},
+                                   "ms_idle_launch": {},
                                    "plain_ms": {}, "bound_ms": {},
                                    "bound_by": {}})
         r["max_abs_err"] = max(r["max_abs_err"], worst_abs)
         r["ms"][label] = ms
+        r["ms_idle_launch"][label] = idle_ms
         r["plain_ms"][label] = plain_ms
         r["bound_ms"][label] = b_ms
         r["bound_by"][label] = b_by
@@ -348,34 +403,65 @@ def phase_kernels():
     out = tc.encode_forward(xr0, planes, 2)
     ref = tc.encode_forward_plain(planes, xr0, 2)
     record("encode_forward", "encode_forward", {"embed": _err(out, ref)},
-           _time_ms(lambda: tc.encode_forward(xr0, planes, 2)),
+           lambda: tc.encode_forward(xr0, planes, 2),
            _time_ms(lambda: tc.encode_forward_plain(planes, xr0, 2)),
            x.shape[1])
     del xr0, out, ref
 
-    # K1 full with return_embed at the BA shape
-    out, emb = fc.field_forward(x, planes, dec, *meta, return_embed=True)
-    ref, ref_emb = fc.field_forward_plain(x, planes, dec, *meta,
-                                          return_embed=True)
-    torch.cuda.synchronize()
-    record("field_forward", "field_forward",
-           {"out": _err(out, ref), "embed": _err(emb, ref_emb)},
-           _time_ms(lambda: fc.field_forward(x, planes, dec, *meta,
-                                             return_embed=True)),
-           _time_ms(lambda: fc.field_forward_plain(x, planes, dec, *meta,
-                                                   return_embed=True)),
-           x.shape[1])
+    def k1(xx, **mode):
+        return fc.field_forward(xx, planes, dec, *meta, **mode)
+
+    def k1_plain(xx, **mode):
+        return fc.field_forward_plain(xx, planes, dec, *meta, **mode)
+
+    def k1_errs(xx, **mode):
+        got, want = k1(xx, **mode), k1_plain(xx, **mode)
+        torch.cuda.synchronize()
+        if mode.get("return_embed"):
+            return {"out": _err(got[0], want[0]),
+                    "embed": _err(got[1], want[1])}
+        return {"sdf" if mode.get("sdf_only") else "out": _err(got, want)}
+
+    # K1's packed weights: the kernel's packer against the plain one
+    if not torch.equal(fc.pack_decoder_weights(dec),
+                       fc.pack_decoder_weights_plain(dec)):
+        _fail("K1: the kernel's packed weights differ from the plain "
+              "packer's")
+    # K1 full with return_embed at the BA shape, at the GO shape on
+    # ray-ordered points (1000 rays x 75 samples) and at the shape of
+    # refine and the fits (135,000 points)
+    xgo = ray_points(1000, 75, 9, dev)
+    x135 = test_points(135_000, 10, dev)
+    for label, xx in (("field_forward", x), ("field_forward_go@rays", xgo),
+                      ("field_forward@135k", x135)):
+        record("field_forward", label, k1_errs(xx, return_embed=True),
+               lambda: k1(xx, return_embed=True),
+               _time_ms(lambda: k1_plain(xx, return_embed=True)),
+               xx.shape[1], kind="field_forward")
     # K1 sdf_only at the RO shape (2000 particles x 384 pixels)
     xr = test_points(768_000, 2, dev)
-    out = fc.field_forward(xr, planes, dec, *meta, sdf_only=True)
-    ref = fc.field_forward_plain(xr, planes, dec, *meta, sdf_only=True)
-    record("field_forward", "field_forward_sdf", {"sdf": _err(out, ref)},
-           _time_ms(lambda: fc.field_forward(xr, planes, dec, *meta,
-                                             sdf_only=True)),
-           _time_ms(lambda: fc.field_forward_plain(xr, planes, dec, *meta,
-                                                   sdf_only=True), reps=3),
+    record("field_forward", "field_forward_sdf", k1_errs(xr, sdf_only=True),
+           lambda: k1(xr, sdf_only=True),
+           _time_ms(lambda: k1_plain(xr, sdf_only=True), reps=3, groups=1),
            xr.shape[1])
-    del xr, out, ref, emb, ref_emb
+    # K1 full without the embed (the third instance), then each mode at
+    # point counts that are no multiple of the 16-point tile, and twice
+    # for the same bits
+    record("field_forward", "field_forward_noembed", k1_errs(x),
+           lambda: k1(x), _time_ms(lambda: k1_plain(x)),
+           x.shape[1], kind="field_forward")
+    for n in (195_001, 63):
+        xn = test_points(n, 12, dev)
+        for mode in ({"return_embed": True}, {}, {"sdf_only": True}):
+            errs = k1_errs(xn, **mode)
+            part, (_, worst) = max(errs.items(), key=lambda kv: kv[1][1])
+            print(f"field_forward N={n} {mode}: max_rel={worst:.3e} ({part})")
+            if not worst <= TOL["field_forward"]:
+                _fail(f"field_forward at N={n} {mode}: {errs}")
+    for mode in ({"return_embed": True}, {}, {"sdf_only": True}):
+        same(f"field_forward {'/'.join(mode) or 'full'}", k1(xgo, **mode),
+             k1(xgo, **mode))
+    del xr, xgo, x135, xn
 
     # K2-K4 at the BA shape with a random cotangent: uniform points, then
     # ray-ordered points (2600 rays x 75 samples)
@@ -399,7 +485,7 @@ def phase_kernels():
             for w in ("w", "b"):
                 errs[f"{name}.{w}"] = _err(k2[2][name][w], r2[2][name][w])
         record("decoder_backward", f"decoder_backward{suffix}", errs,
-               _time_ms(lambda: fc.decoder_backward(xx, g, emb, dec, 8, 5)),
+               lambda: fc.decoder_backward(xx, g, emb, dec, 8, 5),
                plain2, n, kind="decoder_backward")
         k3 = tc.plane_backward(xx, d_embed, planes, 2)
         r3 = tc.plane_backward_plain(xx, d_embed, planes, 2)
@@ -411,17 +497,43 @@ def phase_kernels():
              tc.plane_backward(xx, d_embed, planes, 2))
         record("plane_backward", f"plane_backward{suffix}",
                {k: _err(k3[k], r3[k]) for k in ("s0", "s1", "cp")},
-               _time_ms(lambda: tc.plane_backward(xx, d_embed, planes, 2)),
+               lambda: tc.plane_backward(xx, d_embed, planes, 2),
                _time_ms(lambda: tc.plane_backward_plain(xx, d_embed, planes,
                                                         2)),
                n, kind="plane_backward")
         k4 = tc.x_backward(xx, d_embed, planes, 2)
         r4 = tc.x_backward_plain(xx, d_embed, planes, 2)
         record("x_backward", f"x_backward{suffix}", {"d_x": _err(k4, r4)},
-               _time_ms(lambda: tc.x_backward(xx, d_embed, planes, 2)),
+               lambda: tc.x_backward(xx, d_embed, planes, 2),
                _time_ms(lambda: tc.x_backward_plain(xx, d_embed, planes, 2)),
                n, kind="x_backward")
-        del emb, g, d_embed, r2, r3, k2, k3, k4, r4
+        # K4 with the PE's share of d_x added (K2's d_x), as FieldQueryT
+        # calls it, and twice for the same bits
+        k4a = tc.x_backward(xx, d_embed, planes, 2, d_x_pe=k2[0])
+        record("x_backward", f"x_backward_add{suffix}",
+               {"d_x": _err(k4a, k2[0] + r4)},
+               lambda: tc.x_backward(xx, d_embed, planes, 2, d_x_pe=k2[0]),
+               _time_ms(lambda: k2[0] + tc.x_backward_plain(
+                   xx, d_embed, planes, 2)),
+               n, kind="x_backward_add")
+        same(f"x_backward{suffix}", (k4, k4a),
+             (tc.x_backward(xx, d_embed, planes, 2),
+              tc.x_backward(xx, d_embed, planes, 2, d_x_pe=k2[0])))
+        del emb, g, d_embed, r2, r3, k2, k3, k4, r4, k4a
+
+    # K4 at point counts that are no multiple of its 32-point block
+    for n in (195_001, 63):
+        xn = test_points(n, 13, dev)
+        d_embed = torch.randn((48, n), generator=gen, device=dev) * 0.1
+        add = torch.randn((3, n), generator=gen, device=dev)
+        e = max(_err(tc.x_backward(xn, d_embed, planes, 2),
+                     tc.x_backward_plain(xn, d_embed, planes, 2))[1],
+                _err(tc.x_backward(xn, d_embed, planes, 2, d_x_pe=add),
+                     tc.x_backward_plain(xn, d_embed, planes, 2,
+                                         d_x_pe=add))[1])
+        print(f"x_backward N={n}: max_rel={e:.3e}")
+        if not e <= TOL["x_backward"]:
+            _fail(f"x_backward at N={n}: relative error {e:.3e}")
 
     # K2 without weight gradients (GO: pose gradients only) at the GO shape
     # (1000 rays x 75 samples)
@@ -433,13 +545,52 @@ def phase_kernels():
     r2 = fc.decoder_backward_plain(xg, g, emb, dec, 8, 5, weight_grads=False)
     record("decoder_backward", "decoder_backward_go@rays",
            {"d_x": _err(k2[0], r2[0]), "d_embed": _err(k2[1], r2[1])},
-           _time_ms(lambda: fc.decoder_backward(xg, g, emb, dec, 8, 5,
-                                                weight_grads=False)),
+           lambda: fc.decoder_backward(xg, g, emb, dec, 8, 5,
+                                       weight_grads=False),
            _time_ms(lambda: fc.decoder_backward_plain(
                xg, g, emb, dec, 8, 5, weight_grads=False)),
            xg.shape[1], kind="decoder_backward_go")
+    kernel_digests()
     torch.cuda.synchronize()
     return rows
+
+
+def kernel_digests():
+    """Print a SHA-256 of K2's and K3's outputs at the BA shape (uniform
+    and ray-ordered points) and of K2's without weight gradients at the GO
+    shape. The embed comes from the plain forward and the cotangents from a
+    seeded generator, so no other kernel shapes the inputs: two trees of
+    the port whose K2 and K3 are the same print the same lines."""
+    import hashlib
+    import torch
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    from mipsfusion_tpu_torch.ops import triplane_cuda as tc
+    dev = torch.device("cuda")
+    p = flagship_params(0, dev)
+    planes, dec = p["planes"], p["decoder"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+
+    def sha(t):
+        h = hashlib.sha256()
+        for u in _flat(t):
+            h.update(u.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    for label, xx in (("uniform", test_points(195_000, 1, dev)),
+                      ("rays", ray_points(2600, 75, 8, dev)),
+                      ("go", ray_points(1000, 75, 9, dev))):
+        n = xx.shape[1]
+        emb = fc.field_forward_plain(xx, planes, dec, 2, 8, 5,
+                                     return_embed=True)[1].contiguous()
+        g = torch.randn((10, n), generator=gen, device=dev) * 0.1
+        d_embed = torch.randn((48, n), generator=gen, device=dev) * 0.1
+        k2 = fc.decoder_backward(xx, g, emb, dec, 8, 5,
+                                 weight_grads=label != "go")
+        k3 = tc.plane_backward(xx, d_embed, planes, 2)
+        print(f"digest {label}: inputs {sha((xx, emb, g, d_embed))} "
+              f"decoder_backward {sha([t for t in k2 if t is not None])} "
+              f"plane_backward {sha(k3)}")
 
 
 def phase_autograd():
@@ -642,10 +793,13 @@ def switch_ba_alone(slam, ds):
 
 # The outback's seeds. A run is reproducible, so a seed fixes its branch of
 # the manager's decisions; some seeds return to a previous submap's region
-# and open a new submap instead of switching back (seeds 0 and 4 of 0-7:
-# the most-overlapping earlier submap holds 45% and 27% of the view
-# against the 50% a switch needs). Every run must hold the accuracy and submap checks, and at least
-# one must close a loop, so that switch back, switch BA and PGO run.
+# and open a new submap instead of switching back, where the
+# most-overlapping earlier submap holds less of the view than the 50% a
+# switch needs (seeds 0, 3 and 7 of 0-7 with the present kernels; which
+# seeds do so moves when a kernel's summation order, and so the low bits
+# of every sdf, changes). Every run must hold the accuracy and submap
+# checks, and at least one must close a loop, so that switch back, switch
+# BA and PGO run.
 OUTBACK_SEEDS = (0, 1, 2)
 
 
@@ -789,6 +943,9 @@ def main(argv=None):
                     metavar="FRAME",
                     help="with --outback-seeds: the manager opens a new "
                          "submap at keyframe FRAME (pins the branch)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1-4 only: build, every kernel against its "
+                         "plain version with times, the autograd paths")
     args = ap.parse_args(argv)
     if args.outback_seeds is not None:
         outback_seeds([int(s) for s in args.outback_seeds.split(",")],
@@ -801,6 +958,14 @@ def main(argv=None):
     fc.reset_launch_counts()
     rows = phase_kernels()
     phase_autograd()
+    if args.kernels_only:
+        print(json.dumps({"kernel_ms": {n: r["ms"] for n, r in rows.items()},
+                          "kernel_ms_idle_launch": {
+                              n: r["ms_idle_launch"]
+                              for n, r in rows.items()},
+                          "bound_ms": {n: r["bound_ms"]
+                                       for n, r in rows.items()}}))
+        return 0
     k0_launches = fc.launch_counts()["encode_forward"]
     orbit_counts = phase_slam()
     by_seed, counts = phase_outbacks()
@@ -829,12 +994,15 @@ def main(argv=None):
             # (the BA batch, 195,000 uniform points); every shape's
             # numbers ride beside them
             "ms": next(iter(r["ms"].values())),
+            "ms_idle_launch": next(iter(r["ms_idle_launch"].values())),
             "plain_ms": next(iter(r["plain_ms"].values())),
             "bound_ms": next(iter(r["bound_ms"].values())),
             "bound_by": next(iter(r["bound_by"].values())),
             # no single PyTorch call computes any of these functions
             "library_ms": None,
-            "ms_by_shape": r["ms"], "plain_ms_by_shape": r["plain_ms"],
+            "ms_by_shape": r["ms"],
+            "ms_idle_launch_by_shape": r["ms_idle_launch"],
+            "plain_ms_by_shape": r["plain_ms"],
             "bound_ms_by_shape": r["bound_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

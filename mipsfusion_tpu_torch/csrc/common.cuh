@@ -10,8 +10,8 @@
 // w [in, out] row-major, b [out]. Point-indexed arrays are points-minor:
 // x [3, N], embed [48, N], out [10, N].
 //
-// Precision: float32 storage and float32 accuracy throughout (K2's tensor-
-// core products split each operand into two TF32 parts, field.cu).
+// Precision: float32 storage and float32 accuracy throughout (K1's and K2's
+// tensor-core products split each operand into two TF32 parts, tf32.cuh).
 
 #pragma once
 #include <cuda_runtime.h>
@@ -119,22 +119,6 @@ __device__ __forceinline__ float pe_freq(int j) {
   return (float)(1 << j) * 3.14159265358979323846f;
 }
 
-// Narrow output layer (J = 3 or 5) into registers.
-template <int J>
-__device__ __forceinline__ void dense_small(const float* in, size_t is, int K,
-                                            const float* __restrict__ W,
-                                            const float* __restrict__ b,
-                                            float out[J]) {
-#pragma unroll
-  for (int j = 0; j < J; ++j) out[j] = __ldg(b + j);
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float v = in[k * is];
-#pragma unroll
-    for (int j = 0; j < J; ++j) out[j] = fmaf(v, __ldg(W + k * J + j), out[j]);
-  }
-}
-
 // Softmax head: prob, sdf = (sum p_i i / (C-1) - 0.5) * 2.
 __device__ __forceinline__ float softmax_head(const float logits[NCLS],
                                              float prob[NCLS]) {
@@ -159,5 +143,16 @@ __device__ __forceinline__ float softmax_head(const float logits[NCLS],
 struct DecoderW {
   const float *w0, *b0, *w1, *b1, *wr, *br, *ws0, *bs0, *ws1, *bs1;
 };
+
+static inline DecoderW make_dw(const float* w0, const float* b0,
+                               const float* w1, const float* b1,
+                               const float* wr, const float* br,
+                               const float* ws0, const float* bs0,
+                               const float* ws1, const float* bs1) {
+  DecoderW d;
+  d.w0 = w0; d.b0 = b0; d.w1 = w1; d.b1 = b1; d.wr = wr; d.br = br;
+  d.ws0 = ws0; d.bs0 = bs0; d.ws1 = ws1; d.bs1 = bs1;
+  return d;
+}
 
 }  // namespace mf

@@ -1,22 +1,10 @@
-// K1: fused field forward, and K2: decoder backward.
+// K2: decoder backward. (K1, the fused field forward whose saved embed K2
+// reads, is in field_forward.cu; the 3xTF32 split both use is in tf32.cuh.)
 //
-// K1 replaces mipsfusion_tpu/ops/field_pallas.py field_query_pallas
-// (_make_field_kernel). A block takes a tile of 64 points. One thread per
-// point computes the Triplane+CP gather lookups and the 8-band PE into
-// shared memory laid out [feature][point]; then the 256 threads run the
-// decoder layer by layer as small matrix products on that tile, each
-// thread a register tile of 8 (or 4) outputs x 4 points, so every weight
-// load is used 4 times and every activation load 8 times; the softmax
-// head is again one thread per point. Decoder weights (38.6k floats) are
-// read through the read-only cache, nearly broadcast within a warp. Per
-// point ~38k MACs against ~0.2 KB of point I/O: bound by the FMA and
-// load-issue rate, not by device memory. 91 KB of shared memory per block
-// allows 2 blocks (16 warps) per SM.
-//
-// K2 replaces field_pallas.py _decoder_bwd_call (_make_decoder_bwd_kernel).
-// A point needs ~115k MACs (forward recompute 38k, data backward 38k,
-// weight gradients 39k) against ~0.45 KB of I/O, so on this card it is
-// bound by arithmetic. Every decoder product runs on the tensor cores as
+// K2 replaces mipsfusion_tpu/ops/field_pallas.py _decoder_bwd_call
+// (_make_decoder_bwd_kernel). A point needs ~115k MACs (forward recompute
+// 38k, data backward 38k, weight gradients 39k) against ~0.45 KB of I/O,
+// so on this card it is bound by arithmetic. Every decoder product runs on the tensor cores as
 // mma.sync.m16n8k8 TF32 with the 3xTF32 split (a = hi + lo, a b ~ a_lo b_hi
 // + a_hi b_lo + a_hi b_hi, float32 accumulation), which keeps float32
 // accuracy; single TF32 (~3 digits) would not hold the 1e-4 tolerance.
@@ -35,68 +23,9 @@
 // layout ([in, out] then the bias row).
 
 #include "common.cuh"
+#include "tf32.cuh"
 
 namespace mf {
-
-// out[j][p] = act(b[j] + sum_k in[k][p] * W[k * ldw + j]) for j < J and
-// the BP points of a shared-memory tile [rows][BP]. Work item t computes
-// TJ outputs x 4 points. W rows and b are 16-byte aligned (ldw % 4 == 0).
-template <int J, int TJ, int BP, int NT, bool RELU>
-__device__ __forceinline__ void tile_dense(const float* in, int K,
-                                           const float* __restrict__ W,
-                                           int ldw,
-                                           const float* __restrict__ b,
-                                           float* out) {
-  constexpr int TP = 4, NPT = BP / TP, NJ = J / TJ;
-  static_assert(J % TJ == 0 && TJ % 4 == 0 && BP % 32 == 0, "tile shape");
-  for (int t = threadIdx.x; t < NJ * NPT; t += NT) {
-    const int j0 = (t / NPT) * TJ, p0 = (t % NPT) * TP;
-    float acc[TJ][TP];
-#pragma unroll
-    for (int i = 0; i < TJ; ++i) {
-      const float bi = __ldg(b + j0 + i);
-#pragma unroll
-      for (int q = 0; q < TP; ++q) acc[i][q] = bi;
-    }
-#pragma unroll 2
-    for (int k = 0; k < K; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(in + k * BP + p0);
-      const float* wr = W + (size_t)k * ldw + j0;
-#pragma unroll
-      for (int i4 = 0; i4 < TJ; i4 += 4) {
-        const float4 w = ld4(wr + i4);
-        const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i4 + i][0] = fmaf(wv[i], a.x, acc[i4 + i][0]);
-          acc[i4 + i][1] = fmaf(wv[i], a.y, acc[i4 + i][1]);
-          acc[i4 + i][2] = fmaf(wv[i], a.z, acc[i4 + i][2]);
-          acc[i4 + i][3] = fmaf(wv[i], a.w, acc[i4 + i][3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < TJ; ++i) {
-      float* o = out + (j0 + i) * BP + p0;
-      float v[TP];
-#pragma unroll
-      for (int q = 0; q < TP; ++q)
-        v[q] = RELU ? fmaxf(acc[i][q], 0.f) : acc[i][q];
-      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
-
-// Copy rows [rows][BP] of a tile to a points-minor array at column n0.
-template <int BP, int NT>
-__device__ __forceinline__ void tile_store(const float* src, int rows,
-                                           float* dst, size_t ld, int n0,
-                                           int nv) {
-  for (int i = threadIdx.x; i < rows * BP; i += NT) {
-    const int r = i / BP, p = i % BP;
-    if (p < nv) dst[(size_t)r * ld + n0 + p] = src[r * BP + p];
-  }
-}
 
 // Point coordinate d of tile column p (padding columns read 0.5).
 __device__ __forceinline__ float tile_x(const float* __restrict__ x, int N,
@@ -122,123 +51,7 @@ __device__ __forceinline__ void tile_pe(const float* __restrict__ x, int N,
   }
 }
 
-// Triplane + CP embed rows [48][BP] of a tile. Work item (part, point):
-// part 0 / 1 the 4 features of scale 0 / 1, parts 2..11 four CP channels.
-template <int BP, int NT>
-__device__ __forceinline__ void tile_encode(const float* __restrict__ x,
-                                            int N, int n0, int nv,
-                                            const float* __restrict__ s0,
-                                            const float* __restrict__ s1,
-                                            const float* __restrict__ cp,
-                                            float* emb) {
-  constexpr int PARTS = 2 + CCP / 4;
-  for (int it = threadIdx.x; it < PARTS * BP; it += NT) {
-    const int part = it / BP, p = it % BP;
-    const float xp[3] = {tile_x(x, N, n0, nv, 0, p),
-                         tile_x(x, N, n0, nv, 1, p),
-                         tile_x(x, N, n0, nv, 2, p)};
-    float4 v;
-    int row;
-    if (part < 2) {
-      v = part == 0 ? scale_lookup<R0>(s0, xp) : scale_lookup<R1>(s1, xp);
-      row = part * FEAT;
-    } else {
-      const int c = (part - 2) * 4;
-      v = cp_lookup4(cp, xp, c);
-      row = 2 * FEAT + c;
-    }
-    emb[row * BP + p] = v.x;
-    emb[(row + 1) * BP + p] = v.y;
-    emb[(row + 2) * BP + p] = v.z;
-    emb[(row + 3) * BP + p] = v.w;
-  }
-}
-
-// K1's tile rows: [h1_sdf 64 | embed 48 | h1_rgb 64 | pe 51]
-// so that the sdf-branch input (rows 0..111) and the rgb-branch input
-// (rows 112..226) are contiguous; then 128 rows for h0.
-constexpr int ROW_SDF_IN = 0;
-constexpr int ROW_EMB = NSDF;              // 64
-constexpr int ROW_RGB_IN = NSDF + EMB;     // 112
-constexpr int ROW_PE = ROW_RGB_IN + NRGB;  // 176
-constexpr int ROW_H = ROW_PE + PE;         // 227
-constexpr int K1_BP = 64;
-constexpr int K1_NT = 256;
-constexpr int K1_ROWS = ROW_H + HID;       // 355 (h2 reuses the h0 rows)
-
-template <bool SDF_ONLY, bool RET_EMBED>
-__global__ void __launch_bounds__(K1_NT)
-    field_forward_kernel(const float* __restrict__ x, int N,
-                         const float* __restrict__ s0,
-                         const float* __restrict__ s1,
-                         const float* __restrict__ cp, DecoderW dw,
-                         float* __restrict__ out, float* __restrict__ embed) {
-  extern __shared__ float4 sm4[];
-  float* sm = reinterpret_cast<float*>(sm4);
-  constexpr int BP = K1_BP, NT = K1_NT;
-  const int n0 = blockIdx.x * BP;
-  const int nv = min(BP, N - n0);
-  const int p = threadIdx.x;
-  tile_encode<BP, NT>(x, N, n0, nv, s0, s1, cp, sm + ROW_EMB * BP);
-  tile_pe<BP, NT>(x, N, n0, nv, sm + ROW_PE * BP);
-  __syncthreads();
-  if (RET_EMBED) tile_store<BP, NT>(sm + ROW_EMB * BP, EMB, embed, N, n0, nv);
-  tile_dense<HID, 8, BP, NT, true>(sm + ROW_PE * BP, PE, dw.w0, HID, dw.b0,
-                                   sm + ROW_H * BP);                    // h0
-  __syncthreads();
-  tile_dense<NSDF, 4, BP, NT, false>(sm + ROW_H * BP, HID, dw.w1,
-                                     NSDF + NRGB, dw.b1,
-                                     sm + ROW_SDF_IN * BP);             // h1 sdf
-  if (!SDF_ONLY)
-    tile_dense<NRGB, 4, BP, NT, false>(
-        sm + ROW_H * BP, HID, dw.w1 + NSDF, NSDF + NRGB, dw.b1 + NSDF,
-        sm + ROW_RGB_IN * BP);                                          // h1 rgb
-  __syncthreads();
-  tile_dense<HBR, 8, BP, NT, true>(sm + ROW_SDF_IN * BP, NSDF + EMB, dw.ws0,
-                                   HBR, dw.bs0, sm + ROW_H * BP);       // h2
-  __syncthreads();
-  if (p >= nv) return;                        // no barriers below
-  float logits[NCLS], prob[NCLS];
-  dense_small<NCLS>(sm + ROW_H * BP + p, BP, HBR, dw.ws1, dw.bs1, logits);
-  const float sdf = softmax_head(logits, prob);
-  const int n = n0 + p;
-  if (SDF_ONLY) {
-    out[n] = sdf;
-    return;
-  }
-  float rgb[3];
-  dense_small<3>(sm + ROW_RGB_IN * BP + p, BP, NRGB + PE, dw.wr, dw.br, rgb);
-  float ent = 0.f;
-#pragma unroll
-  for (int c = 0; c < NCLS; ++c) ent -= prob[c] * log2f(prob[c] + 1e-5f);
-  out[n] = rgb[0];
-  out[(size_t)N + n] = rgb[1];
-  out[2 * (size_t)N + n] = rgb[2];
-  out[3 * (size_t)N + n] = sdf;
-  out[4 * (size_t)N + n] = ent;
-#pragma unroll
-  for (int c = 0; c < NCLS; ++c) out[(size_t)(5 + c) * N + n] = prob[c];
-}
-
 // ---------------------------------------------------------------- K2 ----
-// 3xTF32 on the tensor cores: a = hi + lo with hi = rna_tf32(a) and
-// lo = a - hi; a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi, summed in float32
-// by mma.sync.m16n8k8 (the dropped a_lo b_lo is ~2^-22 of a b).
-// TF32 round to nearest, ties away from zero, as cvt.rna.tf32.f32 rounds
-// (add half of the 13 dropped bits to the magnitude, then drop them; two
-// integer instructions)
-__device__ __forceinline__ uint32_t tf32_rna(float f) {
-  return (__float_as_uint(f) + 0x1000u) & 0xffffe000u;
-}
-
-// a = hi + lo exactly in float32; the tensor core reads lo's top 19 bits
-// (its truncation costs ~2^-21 of a)
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(a);
-  lo = __float_as_uint(a - __uint_as_float(hi));
-}
-
 __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
                                          const uint32_t b[2]) {
   asm volatile(
@@ -647,54 +460,6 @@ __global__ void sum_partials_kernel(const float* __restrict__ partials,
 }  // namespace mf
 
 using namespace mf;
-
-static DecoderW make_dw(const float* w0, const float* b0, const float* w1,
-                        const float* b1, const float* wr, const float* br,
-                        const float* ws0, const float* bs0, const float* ws1,
-                        const float* bs1) {
-  DecoderW d;
-  d.w0 = w0; d.b0 = b0; d.w1 = w1; d.b1 = b1; d.wr = wr; d.br = br;
-  d.ws0 = ws0; d.bs0 = bs0; d.ws1 = ws1; d.bs1 = bs1;
-  return d;
-}
-
-template <bool A, bool B>
-static cudaError_t launch_k1(const float* x, int n, const float* s0,
-                             const float* s1, const float* cp, DecoderW dw,
-                             float* out, float* embed, cudaStream_t st) {
-  const int smem = K1_ROWS * K1_BP * (int)sizeof(float);
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        field_forward_kernel<A, B>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  int grid = (n + K1_BP - 1) / K1_BP;
-  field_forward_kernel<A, B><<<grid, K1_NT, smem, st>>>(
-      x, n, s0, s1, cp, dw, out, embed);
-  return cudaGetLastError();
-}
-
-extern "C" int mf_field_forward(const float* x, int n, const float* s0,
-                                const float* s1, const float* cp,
-                                const float* w0, const float* b0,
-                                const float* w1, const float* b1,
-                                const float* wr, const float* br,
-                                const float* ws0, const float* bs0,
-                                const float* ws1, const float* bs1,
-                                float* out, float* embed, int sdf_only,
-                                void* stream) {
-  DecoderW dw = make_dw(w0, b0, w1, b1, wr, br, ws0, bs0, ws1, bs1);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n <= 0) return (int)cudaSuccess;
-  if (sdf_only)
-    return embed ? (int)launch_k1<true, true>(x, n, s0, s1, cp, dw, out, embed, st)
-                 : (int)launch_k1<true, false>(x, n, s0, s1, cp, dw, out, embed, st);
-  return embed ? (int)launch_k1<false, true>(x, n, s0, s1, cp, dw, out, embed, st)
-               : (int)launch_k1<false, false>(x, n, s0, s1, cp, dw, out, embed, st);
-}
 
 extern "C" int mf_decoder_wt_size() { return WT_SIZE; }
 

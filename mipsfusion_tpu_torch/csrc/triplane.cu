@@ -37,20 +37,29 @@
 // below float32 atomics' own. A last kernel converts to float32.
 // Precision: float32 products and run sums, fixed-point totals.
 //
-// K4 replaces triplane_pallas.py _fused_backward_x (_make_bwd_x_kernel).
-// One thread per point, no reduction: d_x from the derivative taps of the
-// plane and CP interpolation times (R-1). As the TPU kernel, the
-// derivative is the tent derivative at the clamped coordinate, also for
-// points outside [0, 1] (where the composite autodiff path gives 0), and
-// at the upper clamp, where row i0+1 does not exist, it is -P[R-1].
-// Bound by the gather latency of 24 plane and 6 CP-row reads per point.
+// K4 replaces mipsfusion_tpu/ops/triplane_pallas.py _fused_backward_x
+// (_make_bwd_x_kernel): d_x from the derivative taps of the plane and CP
+// interpolation times (R-1). As the TPU kernel, the derivative is the tent
+// derivative at the clamped coordinate, also for points outside [0, 1]
+// (where the composite autodiff path gives 0), and at the upper clamp,
+// where row i0+1 does not exist, it is -P[R-1]. Its bound is bytes (216 B
+// a point in and out); what it costs is 84 16-byte gathers a point from
+// the tables in L1/L2, so the design keeps many of them in flight and few
+// cache lines per load: the four lanes of a quad share a point. Lane t < 3
+// takes plane t (xy, xz, yz) of both scales (8 gathers), and every lane
+// takes the CP channel groups t, t+4, t+8 (of 10 groups of 4 channels, 16
+// bytes a tap, 6 gathers a group; a quad's lanes read 64 contiguous bytes
+// of a line), all independent. The quad's partial d_x are summed with two
+// xor shuffles (a fixed order, so the same bits every call), the optional
+// d_x of the PE (K2's) is added, and lane t writes coordinate t. d_embed
+// is read points-minor: a warp's 8 points are 32 contiguous bytes a row.
 // Precision: float32.
 
 #include "common.cuh"
 
 namespace mf {
 
-constexpr int K4_THREADS = 128;
+constexpr int K4_THREADS = 128;              // 4 lanes a point
 constexpr int K0_THREADS = 128;
 
 __global__ void __launch_bounds__(K0_THREADS)
@@ -349,59 +358,72 @@ __device__ __forceinline__ void plane_dx(const float* P, const Tap& u,
   dv = ((1.0f - u.w) * dot4(g, gv) + u.w * dot4(g, gv1)) * (float)(R - 1);
 }
 
-template <int R>
-__device__ __forceinline__ void scale_dx(const float* Sp, const float x[3],
-                                         float4 g, float dx[3]) {
-  Tap t[3] = {make_tap<R>(x[0]), make_tap<R>(x[1]), make_tap<R>(x[2])};
-  const int RR = R * R * FEAT;
-  float du, dv;
-  plane_dx<R>(Sp, t[0], t[1], g, du, dv);            // xy
-  dx[0] += du; dx[1] += dv;
-  plane_dx<R>(Sp + RR, t[0], t[2], g, du, dv);       // xz
-  dx[0] += du; dx[2] += dv;
-  plane_dx<R>(Sp + 2 * RR, t[1], t[2], g, du, dv);   // yz
-  dx[1] += du; dx[2] += dv;
-}
-
+// d_x_pe (optional, [3, N]) is added to the result.
 __global__ void __launch_bounds__(K4_THREADS)
     x_bwd_kernel(const float* __restrict__ x,
                  const float* __restrict__ d_embed,
                  const float* __restrict__ s0, const float* __restrict__ s1,
                  const float* __restrict__ cp, int N,
-                 float* __restrict__ d_x) {
-  const int n = blockIdx.x * K4_THREADS + threadIdx.x;
-  if (n >= N) return;
+                 const float* __restrict__ d_x_pe, float* __restrict__ d_x) {
+  const int tid = blockIdx.x * K4_THREADS + threadIdx.x;
+  const int n = tid >> 2, t = tid & 3;
   const size_t S = N;
-  float xp[3] = {x[n], x[S + n], x[2 * S + n]};
-  float4 g0 = make_float4(d_embed[n], d_embed[S + n], d_embed[2 * S + n],
-                          d_embed[3 * S + n]);
-  float4 g1 = make_float4(d_embed[4 * S + n], d_embed[5 * S + n],
-                          d_embed[6 * S + n], d_embed[7 * S + n]);
+  // lanes past the end compute the last point again (they take part in
+  // the shuffles) and store nothing
+  const int nc = min(n, N - 1);
+  const float xp[3] = {x[nc], x[S + nc], x[2 * S + nc]};
   float dx[3] = {0.f, 0.f, 0.f};
-  scale_dx<R0>(s0, xp, g0, dx);
-  scale_dx<R1>(s1, xp, g1, dx);
+  if (t < 3) {
+    // plane t of both scales, over axes (u, v) = (0, 1), (0, 2), (1, 2)
+    const float xu = t == 2 ? xp[1] : xp[0], xv = t == 0 ? xp[1] : xp[2];
+    const float* de = d_embed + nc;
+    const float4 g0 = make_float4(de[0], de[S], de[2 * S], de[3 * S]);
+    const float4 g1 = make_float4(de[4 * S], de[5 * S], de[6 * S], de[7 * S]);
+    float du0, dv0, du1, dv1;
+    plane_dx<R0>(s0 + t * R0 * R0 * FEAT, make_tap<R0>(xu), make_tap<R0>(xv),
+                 g0, du0, dv0);
+    plane_dx<R1>(s1 + t * R1 * R1 * FEAT, make_tap<R1>(xu), make_tap<R1>(xv),
+                 g1, du1, dv1);
+    const float du = du0 + du1, dv = dv0 + dv1;
+    dx[0] = t < 2 ? du : 0.f;
+    dx[1] = t == 0 ? dv : t == 2 ? du : 0.f;
+    dx[2] = t >= 1 ? dv : 0.f;
+  }
 
-  Tap t[3] = {make_tap<RCP>(xp[0]), make_tap<RCP>(xp[1]), make_tap<RCP>(xp[2])};
+  const Tap tp[3] = {make_tap<RCP>(xp[0]), make_tap<RCP>(xp[1]),
+                     make_tap<RCP>(xp[2])};
   float dcp[3] = {0.f, 0.f, 0.f};
-#pragma unroll 2
-  for (int c = 0; c < CCP; ++c) {
-    float f[3], df[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int c = 4 * (t + 4 * i);           // channel group t + 4 i
+    if (c >= CCP) continue;
+    float4 f[3], df[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const float* L = cp + (size_t)a * RCP * CCP;
-      float lo = __ldg(L + t[a].i0 * CCP + c);
-      float hi = __ldg(L + t[a].i1 * CCP + c);
-      f[a] = (1.0f - t[a].w) * lo + t[a].w * hi;
-      df[a] = (t[a].has_next ? hi : 0.0f) - lo;
+      const float* L = cp + (size_t)a * RCP * CCP + c;
+      const float4 lo = ld4(L + tp[a].i0 * CCP);
+      const float4 hi = ld4(L + tp[a].i1 * CCP);
+      f[a] = lerp4(lo, hi, tp[a].w);
+      df[a] = sub4(tp[a].has_next ? hi : make_float4(0.f, 0.f, 0.f, 0.f), lo);
     }
-    float gc = d_embed[(size_t)(2 * FEAT + c) * S + n];
-    dcp[0] += gc * df[0] * f[1] * f[2];
-    dcp[1] += gc * df[1] * f[0] * f[2];
-    dcp[2] += gc * df[2] * f[0] * f[1];
+    const float* de = d_embed + (size_t)(2 * FEAT + c) * S + nc;
+    const float4 gc = make_float4(de[0], de[S], de[2 * S], de[3 * S]);
+    dcp[0] += dot4(mul4(gc, df[0]), mul4(f[1], f[2]));
+    dcp[1] += dot4(mul4(gc, df[1]), mul4(f[0], f[2]));
+    dcp[2] += dot4(mul4(gc, df[2]), mul4(f[0], f[1]));
   }
 #pragma unroll
-  for (int a = 0; a < 3; ++a)
-    d_x[a * S + n] = dx[a] + dcp[a] * (float)(RCP - 1);
+  for (int a = 0; a < 3; ++a) {
+    float v = dx[a] + dcp[a] * (float)(RCP - 1);
+    v += __shfl_xor_sync(FULL_MASK, v, 1);
+    v += __shfl_xor_sync(FULL_MASK, v, 2);
+    dx[a] = v;
+  }
+  if (n < N && t < 3) {
+    float v = t == 0 ? dx[0] : t == 1 ? dx[1] : dx[2];
+    if (d_x_pe) v += d_x_pe[t * S + n];
+    d_x[t * S + n] = v;
+  }
 }
 
 }  // namespace mf
@@ -441,13 +463,14 @@ extern "C" int mf_plane_backward(const float* x, const float* d_embed,
   return (int)cudaGetLastError();
 }
 
+// d_x_pe: null, or [3, N] added to the result.
 extern "C" int mf_x_backward(const float* x, const float* d_embed,
                              const float* s0, const float* s1,
-                             const float* cp, int n, float* d_x,
-                             void* stream) {
+                             const float* cp, int n, const float* d_x_pe,
+                             float* d_x, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  int grid = (n + K4_THREADS - 1) / K4_THREADS;
+  const int grid = (int)(((size_t)n * 4 + K4_THREADS - 1) / K4_THREADS);
   x_bwd_kernel<<<grid, K4_THREADS, 0, (cudaStream_t)stream>>>(
-      x, d_embed, s0, s1, cp, n, d_x);
+      x, d_embed, s0, s1, cp, n, d_x_pe, d_x);
   return (int)cudaGetLastError();
 }

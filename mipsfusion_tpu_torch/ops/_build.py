@@ -23,17 +23,21 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "mf_field_forward": [_P, _I] + [_P] * 3 + [_P] * 10 + [_P, _P, _I, _P],
+    "mf_field_packed_size": [],
+    "mf_field_pack_weights": [_P] * 10 + [_P, _P],
+    "mf_field_forward": ([_P, _I] + [_P] * 3 + [_P] * 10
+                         + [_P, _I, _P, _P, _I, _P]),
     "mf_decoder_wt_size": [],
     "mf_decoder_backward": ([_P, _P, _P, _I] + [_P] * 10
                             + [_P, _P, _I, _P, _P, _P, _I, _P]),
     "mf_encode_forward": [_P, _P, _P, _P, _I, _P, _P],
     "mf_plane_backward_acc_size": [],
     "mf_plane_backward": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
-    "mf_x_backward": [_P, _P, _P, _P, _P, _I, _P, _P],
+    "mf_x_backward": [_P, _P, _P, _P, _P, _I, _P, _P, _P],
 }
 
 _lib = None
@@ -156,3 +160,18 @@ def ptr(t, name: str, shape=None) -> int:
 def stream() -> int:
     import torch
     return torch.cuda.current_stream().cuda_stream
+
+
+_sm_counts = {}
+
+
+def sm_count(device) -> int:
+    """The device's number of SMs (the size of a persistent grid)."""
+    import torch
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]

@@ -5,8 +5,9 @@ Port of ``mipsfusion_tpu/ops/field_pallas.py``: ``field_forward``
 replaces ``field_query_pallas``, ``decoder_backward`` replaces
 ``_decoder_bwd_call`` and ``FieldQueryT`` replaces the custom VJP of
 ``field_query_diff_T``. Each wrapper serves a CPU tensor with its plain
-PyTorch version and a CUDA tensor with the kernel in ``csrc/field.cu``
-(or raises); ``<wrapper>.launches`` counts kernel launches.
+PyTorch version and a CUDA tensor with its kernel (K1
+``csrc/field_forward.cu``, K2 ``csrc/field.cu``), or raises;
+``<wrapper>.launches`` counts kernel launches.
 
 Field parameters are the JAX tree's layout:
 ``{"planes": {"s0", "s1", "cp"}, "decoder": {layer: {"w", "b"}}}``.
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..models.decoder import LAYERS, decoder_apply
@@ -54,6 +56,122 @@ def _dec_ptrs(dec: Tree):
 
 # ----------------------------------------------------------------- K1 ----
 
+# K1 keeps a warp's activations in the registers of mma.sync.m16n8k8
+# fragments, so it reads the decoder's weights in B-fragment order with
+# each layer's input rows permuted to where the previous layer's
+# accumulators (or the PE / embed values a thread computed) sit. Lane
+# (g, t) = (lane // 4, lane % 4); slot s of a k-block is A column s, held
+# by thread s % 4.
+
+def _perm_chain(kb, s):
+    """Input row in slot s of k-block kb when the input is the previous
+    layer's output: thread t holds columns 8 kb + 2t, 8 kb + 2t + 1."""
+    return 8 * kb + 2 * (s & 3) + (s >> 2)
+
+
+def _perm_pe(kb, s):
+    """PE rows [x 3 | (axis, band) sin, cos]: k-block kb < 6 holds pair
+    4 kb + t as sin (slot t) and cos (slot t + 4); k-block 6 holds raw x
+    in slots 0..2 and zero padding (-1)."""
+    return np.where(kb < 6, 3 + 2 * (4 * kb + (s & 3)) + (s >> 2),
+                    np.where(s < 3, s, -1))
+
+
+def _perm_emb(kb, s):
+    """Embed rows: thread t holds parts t, t + 4, t + 8 (4 rows each);
+    part t + 4 i fills k-blocks 2 i and 2 i + 1."""
+    return 4 * ((s & 3) + 4 * (kb >> 1)) + 2 * (kb & 1) + (s >> 2)
+
+
+def _wide_index(rows, base: int) -> np.ndarray:
+    """A 128-column layer [k-block][tile pair][lane][4]: rows(kb, slot) is
+    the input row (-1: padding), base the layer's offset in the flat
+    parameters."""
+    n_kb = rows.shape[0]
+    lane = np.arange(32)[None, None, :, None]
+    e = np.arange(4)[None, None, None, :]
+    pair = np.arange(8)[None, :, None, None]
+    kb = np.arange(n_kb)[:, None, None, None]
+    k = rows[kb, (lane & 3) + 4 * (e & 1)]
+    n = 8 * (2 * pair + (e >> 1)) + (lane >> 2)
+    return np.where(k >= 0, base + k * 128 + n, -1).reshape(-1)
+
+
+def _narrow_index(rows, base: int, n_valid: int) -> np.ndarray:
+    """A layer of n_valid <= 8 columns [k-block][lane][2], zero columns
+    up to 8."""
+    n_kb = rows.shape[0]
+    lane = np.arange(32)[None, :, None]
+    e = np.arange(2)[None, None, :]
+    kb = np.arange(n_kb)[:, None, None]
+    k = rows[kb, (lane & 3) + 4 * e]
+    n = np.broadcast_to(lane >> 2, k.shape)
+    return np.where((k >= 0) & (n < n_valid), base + k * n_valid + n,
+                    -1).reshape(-1)
+
+
+def _pad_index(base: int, n_valid: int, n: int) -> np.ndarray:
+    i = np.arange(n)
+    return np.where(i < n_valid, base + i, -1)
+
+
+_packed_index = None
+
+
+def packed_index() -> np.ndarray:
+    """For every float of K1's packed weight set, its index into the
+    concatenation of the decoder's flat parameters (w, b per layer in
+    ``LAYERS`` order), or -1 for zero padding."""
+    global _packed_index
+    if _packed_index is None:
+        sizes = [int(np.prod(s)) for pair in _build.DECODER_SHAPES
+                 for s in pair]
+        off = np.concatenate([[0], np.cumsum(sizes)])
+        w0, b0, w1, b1, wr, br, ws0, bs0, ws1, bs1 = off[:10]
+        s = np.arange(8)[None, :]
+
+        def rows(fn, n_kb):
+            return fn(np.arange(n_kb)[:, None], s)
+
+        pe, chain16, chain8 = (rows(_perm_pe, 7), rows(_perm_chain, 16),
+                               rows(_perm_chain, 8))
+        emb = 64 + rows(_perm_emb, 6)
+        pe_rgb = np.where(pe >= 0, 64 + pe, -1)
+        _packed_index = np.concatenate([
+            _wide_index(pe, w0),
+            _wide_index(chain16, w1),
+            _wide_index(np.concatenate([chain8, emb]), ws0),
+            _narrow_index(chain16, ws1, _build.N_CLASS),
+            _narrow_index(np.concatenate([chain8, pe_rgb]), wr, 3),
+            _pad_index(b0, 128, 128), _pad_index(b1, 128, 128),
+            _pad_index(bs0, 128, 128), _pad_index(bs1, _build.N_CLASS, 8),
+            _pad_index(br, 3, 8)])
+    return _packed_index
+
+
+def pack_decoder_weights_plain(dec: Tree) -> torch.Tensor:
+    """The decoder's weights in K1's packed order (flagship widths), as
+    csrc/field_forward.cu pack_weights_kernel writes them."""
+    flat = torch.cat([t.reshape(-1) for t in _dec_flat(dec)])
+    idx = torch.as_tensor(packed_index(), device=flat.device)
+    return torch.where(idx >= 0, flat[idx.clamp(min=0)],
+                       torch.zeros((), dtype=flat.dtype, device=flat.device))
+
+
+def pack_decoder_weights(dec: Tree) -> torch.Tensor:
+    """K1's packed weight set: the plain packer for CPU tensors, the
+    kernel's own first step for CUDA tensors."""
+    w = dec[LAYERS[0]]["w"]
+    if w.device.type == "cpu":
+        return pack_decoder_weights_plain(dec)
+    lib = _build.lib()
+    packed = torch.empty((lib.mf_field_packed_size(),), device=w.device)
+    err = lib.mf_field_pack_weights(*_dec_ptrs(dec), packed.data_ptr(),
+                                    _build.stream())
+    _build.check(err, "pack_decoder_weights")
+    return packed
+
+
 def field_forward_plain(xT: torch.Tensor, planes: Dict[str, torch.Tensor],
                         dec: Tree, n_scales: int, n_freq: int, n_class: int,
                         sdf_only: bool = False, return_embed: bool = False):
@@ -69,6 +187,10 @@ def field_forward_plain(xT: torch.Tensor, planes: Dict[str, torch.Tensor],
 def field_forward(xT: torch.Tensor, planes: Dict[str, torch.Tensor],
                   dec: Tree, n_scales: int, n_freq: int, n_class: int,
                   sdf_only: bool = False, return_embed: bool = False):
+    if sdf_only and return_embed:
+        raise ValueError("field_forward: the embed comes with the full "
+                         "output only (K1 has no sdf_only instance that "
+                         "stores it)")
     if xT.device.type == "cpu":
         return field_forward_plain(xT, planes, dec, n_scales, n_freq,
                                    n_class, sdf_only, return_embed)
@@ -80,12 +202,16 @@ def field_forward(xT: torch.Tensor, planes: Dict[str, torch.Tensor],
              _build.ptr(planes["s1"], "s1", _build.PLANE_SHAPES[1]),
              _build.ptr(planes["cp"], "cp", _build.CP_SHAPE)]
             + _dec_ptrs(dec))
+    lib = _build.lib()
     out = torch.empty((1 if sdf_only else 5 + n_class, N), device=xT.device)
     embed = (torch.empty((_build.EMBED_DIM, N), device=xT.device)
              if return_embed else None)
-    err = _build.lib().mf_field_forward(
-        *args, out.data_ptr(), embed.data_ptr() if return_embed else None,
-        int(sdf_only), _build.stream())
+    # scratch for the weights in the kernel's fragment order
+    packed = torch.empty((lib.mf_field_packed_size(),), device=xT.device)
+    err = lib.mf_field_forward(
+        *args, packed.data_ptr(), _build.sm_count(xT.device), out.data_ptr(),
+        embed.data_ptr() if return_embed else None, int(sdf_only),
+        _build.stream())
     _build.check(err, "field_forward")
     field_forward.launches += 1
     return (out, embed) if return_embed else out
@@ -165,7 +291,9 @@ class FieldQueryT(torch.autograd.Function):
 
     Forward is K1 with the embed saved as the only residual. Backward is
     K2 (decoder and PE), then K3 only if a plane or CP tensor needs a
-    gradient (GO differentiates only the pose), then K4 only if x does.
+    gradient (GO differentiates only the pose), then K4 only if x does;
+    K4 takes K2's d_x through the PE and returns the sum (the fused add:
+    no separate addition follows).
     Inputs after ``meta`` = (n_scales, n_freq, n_class) are the plane
     tensors (s0.., cp) followed by the decoder's w, b per layer.
     """
@@ -203,7 +331,7 @@ class FieldQueryT(torch.autograd.Function):
         dec_grads = _dec_flat(d_dec) if need_dec else [None] * 2 * len(LAYERS)
         d_x = None
         if need[0]:
-            d_x = d_x_pe + x_backward(xT, d_embed, planes, n_scales)
+            d_x = x_backward(xT, d_embed, planes, n_scales, d_x_pe=d_x_pe)
         return (d_x, None, *plane_grads, *dec_grads)
 
 

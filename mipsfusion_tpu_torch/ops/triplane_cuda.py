@@ -18,7 +18,7 @@ where K1's ``return_embed`` output carries the encoding.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -187,13 +187,14 @@ plane_backward.launches = 0
 # ----------------------------------------------------------------- K4 ----
 
 def x_backward_plain(xT: torch.Tensor, d_embed: torch.Tensor,
-                     planes: Dict[str, torch.Tensor],
-                     n_scales: int) -> torch.Tensor:
+                     planes: Dict[str, torch.Tensor], n_scales: int,
+                     d_x_pe: Optional[torch.Tensor] = None) -> torch.Tensor:
     """d_x [3, N] through the plane and CP interpolation: the derivative
     taps (row i0+1 minus row i0) times (R-1), at the clamped coordinate.
     Where row i0+1 does not exist (upper clamp) it reads as 0, so the
     derivative is -P[R-1]; outside [0, 1] the tent derivative of the
-    clamped coordinate stands (reference ``_make_bwd_x_kernel``)."""
+    clamped coordinate stands (reference ``_make_bwd_x_kernel``).
+    ``d_x_pe`` [3, N], if given, is added (the PE's share of d_x)."""
     x = xT.T
     N = x.shape[0]
     dx = torch.zeros((N, 3), dtype=x.dtype, device=x.device)
@@ -232,14 +233,15 @@ def x_backward_plain(xT: torch.Tensor, d_embed: torch.Tensor,
         others = (f[1] * f[2], f[0] * f[2], f[0] * f[1])
         for a in range(3):
             dx[:, a] += (gc * df[a] * others[a]).sum(-1) * (R - 1)
-    return dx.T.contiguous()
+    dxT = dx.T.contiguous()
+    return dxT if d_x_pe is None else d_x_pe + dxT
 
 
 def x_backward(xT: torch.Tensor, d_embed: torch.Tensor,
-               planes: Dict[str, torch.Tensor],
-               n_scales: int) -> torch.Tensor:
+               planes: Dict[str, torch.Tensor], n_scales: int,
+               d_x_pe: Optional[torch.Tensor] = None) -> torch.Tensor:
     if xT.device.type == "cpu":
-        return x_backward_plain(xT, d_embed, planes, n_scales)
+        return x_backward_plain(xT, d_embed, planes, n_scales, d_x_pe)
     if n_scales != 2 or "cp" not in planes:
         raise ValueError("x_backward kernel: flagship field only "
                          "(2 scales + CP)")
@@ -249,8 +251,9 @@ def x_backward(xT: torch.Tensor, d_embed: torch.Tensor,
             _build.ptr(planes["s0"], "s0", _build.PLANE_SHAPES[0]),
             _build.ptr(planes["s1"], "s1", _build.PLANE_SHAPES[1]),
             _build.ptr(planes["cp"], "cp", _build.CP_SHAPE)]
+    add = None if d_x_pe is None else _build.ptr(d_x_pe, "d_x_pe", (3, N))
     d_x = torch.empty((3, N), device=xT.device)
-    err = _build.lib().mf_x_backward(*args, N, d_x.data_ptr(),
+    err = _build.lib().mf_x_backward(*args, N, add, d_x.data_ptr(),
                                      _build.stream())
     _build.check(err, "x_backward")
     x_backward.launches += 1

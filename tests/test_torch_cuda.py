@@ -123,6 +123,68 @@ def test_k2_k3_give_the_same_bits_every_call(card):
         assert torch.equal(a[k], b[k])
 
 
+@pytest.mark.parametrize("n", [195_001, 63, 16, 1])
+def test_k1_k4_match_plain_at_ragged_sizes(card, n):
+    """K1's three modes (persistent grid, 16-point tiles a warp) and K4
+    (32-point blocks, with and without the added d_x_pe) at point counts
+    that are no multiple of a tile: relative 2e-5 and 1e-4."""
+    dev, prm = card
+    x = chip_smoke.test_points(n, 7, dev)
+    planes, dec = prm["planes"], prm["decoder"]
+    for mode in ({"return_embed": True}, {}, {"sdf_only": True}):
+        got = fc.field_forward(x, planes, dec, *META, **mode)
+        want = fc.field_forward_plain(x, planes, dec, *META, **mode)
+        for a, b in zip(chip_smoke._flat(got), chip_smoke._flat(want)):
+            assert a.shape == b.shape
+            assert chip_smoke._err(a, b)[1] < 2e-5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    d = torch.randn((48, n), generator=gen, device=dev) * 0.1
+    add = torch.randn((3, n), generator=gen, device=dev)
+    assert chip_smoke._err(tc.x_backward(x, d, planes, 2),
+                           tc.x_backward_plain(x, d, planes, 2))[1] < 1e-4
+    assert chip_smoke._err(
+        tc.x_backward(x, d, planes, 2, d_x_pe=add),
+        tc.x_backward_plain(x, d, planes, 2, d_x_pe=add))[1] < 1e-4
+
+
+def test_k1_k4_give_the_same_bits_every_call(card):
+    """K1 (fixed summation order in registers) and K4 (quad shuffles in a
+    fixed order) return bitwise equal results when called twice."""
+    dev, prm = card
+    x = chip_smoke.ray_points(300, 75, 5, dev)
+    planes, dec = prm["planes"], prm["decoder"]
+    for mode in ({"return_embed": True}, {}, {"sdf_only": True}):
+        a, b = (chip_smoke._flat(fc.field_forward(x, planes, dec, *META,
+                                                  **mode)) for _ in range(2))
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    d = torch.randn((48, x.shape[1]), generator=gen, device=dev) * 0.1
+    add = torch.randn((3, x.shape[1]), generator=gen, device=dev)
+    for kw in ({}, {"d_x_pe": add}):
+        a, b = (tc.x_backward(x, d, planes, 2, **kw) for _ in range(2))
+        assert torch.equal(a, b)
+
+
+def test_k1_packed_weights_match_plain_packer(card):
+    """The kernel's packer writes exactly what the plain packer (the one
+    the CPU tests hold to be a permutation) writes."""
+    dev, prm = card
+    assert torch.equal(fc.pack_decoder_weights(prm["decoder"]),
+                       fc.pack_decoder_weights_plain(prm["decoder"]))
+
+
+def test_k1_empty_input(card):
+    dev, prm = card
+    x = torch.empty((3, 0), device=dev)
+    out, emb = fc.field_forward(x, prm["planes"], prm["decoder"], *META,
+                                return_embed=True)
+    assert out.shape == (10, 0) and emb.shape == (48, 0)
+    d = torch.empty((48, 0), device=dev)
+    assert tc.x_backward(x, d, prm["planes"], 2).shape == (3, 0)
+
+
 def test_encode_kernel_and_op_match_plain(card):
     """K0 against the plain encode (relative 2e-5), and TriplaneEncode's
     plane, CP and x gradients (K3, K4) against autograd of the plain
