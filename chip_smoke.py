@@ -37,7 +37,20 @@ Phases (any failure raises; the exit code is then non-zero):
                submaps, background refinement; at least one run closes a
                loop (switch back with switch BA and PGO), and on it switch
                BA runs once more alone (K1, K2, K4, and no K3); FPS,
-               switch frames, stage times.
+               switch frames, stage times;
+  7. mesh    - on that first loop-closing run (the main path), the joint
+               mesh of its submaps at voxel 0.03 (MIPSFusionTorch.
+               extract_mesh): K1 launched, no backward kernel, a finite
+               non-empty mesh with accuracy < 0.05 m and completion@5cm
+               > 0.85 against the scene's analytic SDF; its wall time by
+               step; then save_checkpoint, a fresh system's resume_from
+               and extract_mesh again: the same vertices and faces, bit
+               for bit;
+  8. cli     - python3 -m mipsfusion_tpu_torch on a yaml inheriting
+               configs/synthetic/orbit.yaml (30 frames, a checkpoint at
+               frame 15), then again with --resume <out>/ckpt_15: each
+               exits 0 with ATE < 0.02 m and leaves its trajectory,
+               checkpoints, render panel and mesh_final.ply.
 The kernels' JSON line comes second to last; the last line is
 {"ok": true, "device": {...}}.
 
@@ -61,6 +74,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -236,6 +250,30 @@ def ray_points(n_rays: int, n_samples: int, seed: int, device):
     return torch.tensor(x, dtype=torch.float32, device=device).contiguous()
 
 
+def mesh_grid_points(device, n: int = 131_072):
+    """x [3, n]: the first n points of the mesher's fused-volume grid
+    (voxel 0.03 over the outback's observed box, flat index order, as
+    ``Mesher.fused_sdf_volume_device`` generates them), carried into the
+    frame of a submap anchored 1.2 m along +x and turned 0.2 rad about +y,
+    and normalised by the flagship bound, as K1 takes them."""
+    import torch
+    from mipsfusion_tpu_torch.config import FLAGSHIP_OUTBACK
+    bound = np.asarray(FLAGSHIP_OUTBACK["mapping"]["bound"], np.float32)
+    lo = np.array([-3.4, -2.6, -2.9], np.float32)
+    shape = (226, 174, 194)
+    idx = np.arange(n)
+    ijk = np.stack([idx // (shape[1] * shape[2]),
+                    (idx // shape[2]) % shape[1], idx % shape[2]], -1)
+    pts = lo + np.float32(0.03) * ijk.astype(np.float32)
+    c, s_ = np.cos(0.2), np.sin(0.2)
+    anchor = np.array([[c, 0, s_, 1.2], [0, 1, 0, 0.05], [-s_, 0, c, 0.0],
+                       [0, 0, 0, 1]])
+    w2l = np.linalg.inv(anchor)
+    pl = pts @ w2l[:3, :3].T + w2l[:3, 3]
+    x = (pl - bound[:, 0]) / (bound[:, 1] - bound[:, 0])
+    return torch.tensor(x.T, dtype=torch.float32, device=device).contiguous()
+
+
 def _flat(t):
     """Every tensor of a nested tuple/dict, in order."""
     if isinstance(t, dict):
@@ -329,6 +367,7 @@ PEAK_BYTES = 3.35e12
 # taps x 5 + 40 x 21 = 960; K4 ~ 6 planes x 40 + 40 x 20 = 1,040.
 FLOP_PT = {"encode_forward": (0, 632),
            "field_forward": (2 * 38_233, 632),
+           "field_forward_noembed": (2 * 38_233, 632),
            "field_forward_sdf": (2 * 29_696, 632),
            "decoder_backward": (2 * (37_888 + 38_233 + 38_625), 0),
            "decoder_backward_go": (2 * (37_888 + 38_233), 0),
@@ -340,6 +379,7 @@ WEIGHT_BYTES = 38_625 * 4
 # per call
 BYTES = {"encode_forward": (12 + 192, TABLE_BYTES),
          "field_forward": (12 + 40 + 192, TABLE_BYTES + WEIGHT_BYTES),
+         "field_forward_noembed": (12 + 40, TABLE_BYTES + WEIGHT_BYTES),
          "field_forward_sdf": (12 + 4, TABLE_BYTES + WEIGHT_BYTES),
          "decoder_backward": (12 + 40 + 192 + 12 + 192, 2 * WEIGHT_BYTES),
          "decoder_backward_go": (12 + 40 + 192 + 12 + 192, WEIGHT_BYTES),
@@ -449,7 +489,13 @@ def phase_kernels():
     # for the same bits
     record("field_forward", "field_forward_noembed", k1_errs(x),
            lambda: k1(x), _time_ms(lambda: k1_plain(x)),
-           x.shape[1], kind="field_forward")
+           x.shape[1], kind="field_forward_noembed")
+    # K1 as the mesher calls it: one chunk of 131,072 grid points of the
+    # fused volume in a submap's local frame, full outputs, no embed
+    xm = mesh_grid_points(dev)
+    record("field_forward", "field_forward_mesh", k1_errs(xm),
+           lambda: k1(xm), _time_ms(lambda: k1_plain(xm)),
+           xm.shape[1], kind="field_forward_noembed")
     for n in (195_001, 63):
         xn = test_points(n, 12, dev)
         for mode in ({"return_embed": True}, {}, {"sdf_only": True}):
@@ -461,7 +507,7 @@ def phase_kernels():
     for mode in ({"return_embed": True}, {}, {"sdf_only": True}):
         same(f"field_forward {'/'.join(mode) or 'full'}", k1(xgo, **mode),
              k1(xgo, **mode))
-    del xr, xgo, x135, xn
+    del xr, xgo, x135, xn, xm
 
     # K2-K4 at the BA shape with a random cotangent: uniform points, then
     # ray-ordered points (2600 rays x 75 samples)
@@ -724,11 +770,13 @@ def phase_slam(n_frames: int = 45):
 
 
 def phase_outback(n_frames: int = 200, seed: int = 0, spawn=None,
-                  trace: bool = False):
+                  trace: bool = False, mesh: bool = False):
     """The slice's main path: the default multi-submap loop on the
     flagship out-and-back scene at full budgets (``seed``: the system's
     random draws and initial field; ``trace``/``spawn``: see
-    ``trace_outback``)."""
+    ``trace_outback``). With ``mesh``, a run that closes a loop is also
+    meshed (``phase_mesh``); the third value returned is then the
+    mesher's launch counts, else None."""
     import torch
     from mipsfusion_tpu_torch.config import flagship_outback
     from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
@@ -770,9 +818,134 @@ def phase_outback(n_frames: int = 200, seed: int = 0, spawn=None,
                  for k in ("switch_back", "switch_ba", "pgo"))
     print(f"outback seed {seed}: loop closed (switch back, switch BA, PGO): "
           f"{closed}")
+    mesh_counts = None
     if closed:
         switch_ba_alone(slam, ds)
-    return counts, closed
+        if mesh:
+            mesh_counts = phase_mesh(slam, cfg, ds)
+    return counts, closed, mesh_counts
+
+
+def phase_mesh(slam, cfg, ds):
+    """The joint mesh of the main path's run: K1 on the card and no
+    backward kernel, a finite non-empty mesh within the accuracy and
+    completion limits, and the same mesh again from a checkpoint through
+    a fresh system's resume_from. Returns the mesher's launch counts."""
+    import torch
+    from mipsfusion_tpu_torch.eval.recon import evaluate_synthetic_mesh
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
+    used = int(slam.state.localMLP_info[:, 0].sum().item())
+    voxel = cfg["mesh"]["voxel_final"]
+    fc.reset_launch_counts()
+    t0 = time.time()
+    verts, faces, colors = slam.extract_mesh(voxel_size=voxel)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = fc.launch_counts()
+    times = dict(slam.mesh_times)
+    print(f"mesh: {used} submaps (joint)  voxel {voxel}  grid "
+          f"{times.get('grid_shape')}  {len(verts)} vertices "
+          f"{len(faces)} faces  wall {wall:.2f} s  launches {counts}")
+    print("mesh steps (s; volume_device_ms: CUDA events): " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v)
+         for k, v in times.items()}))
+    if used < 2:
+        _fail(f"mesh: {used} submap(s), the joint path needs 2")
+    if counts["field_forward"] <= 0 or any(
+            counts[k] for k in ("decoder_backward", "plane_backward",
+                                "x_backward", "encode_forward")):
+        _fail(f"mesh launches {counts}: want K1 and no other kernel")
+    if not (len(verts) and len(faces) and np.isfinite(verts).all()
+            and np.isfinite(colors).all()):
+        _fail("mesh: empty or non-finite")
+    t0 = time.time()
+    m = evaluate_synthetic_mesh(slam, verts=verts)
+    print(f"mesh accuracy {m['mesh_accuracy_m'] * 1000:.2f} mm  "
+          f"completion@5cm {m['mesh_completion@5cm']:.4f}  observed "
+          f"fraction of GT samples {m['gt_observed_frac']:.3f}  "
+          f"(evaluation {time.time() - t0:.2f} s)")
+    if not m["mesh_accuracy_m"] < 0.05:
+        _fail(f"mesh accuracy {m['mesh_accuracy_m']:.4f} m >= 0.05 m")
+    if not m["mesh_completion@5cm"] > 0.85:
+        _fail(f"mesh completion@5cm {m['mesh_completion@5cm']:.4f} <= 0.85")
+    # the same mesh from a checkpoint, through a fresh system
+    tmp = tempfile.mkdtemp(prefix="mf_mesh_ckpt_")
+    try:
+        slam.output_dir = tmp
+        t0 = time.time()
+        ckpt = slam.save_checkpoint("mesh")
+        fresh = MIPSFusionTorch(cfg, dataset=ds, device=slam.device)
+        fresh.resume_from(ckpt)
+        v2, f2, c2 = fresh.extract_mesh(voxel_size=voxel)
+        print(f"mesh after save_checkpoint + resume_from: {len(v2)} "
+              f"vertices {len(f2)} faces ({time.time() - t0:.2f} s)")
+        print("mesh steps again, warm (s): " + json.dumps(
+            {k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in fresh.mesh_times.items()}))
+        if not (np.array_equal(verts, v2) and np.array_equal(faces, f2)
+                and np.array_equal(colors, c2)):
+            _fail("mesh after resume_from differs from the live mesh")
+        print("mesh after resume_from: bitwise equal to the live mesh")
+    finally:
+        slam.output_dir = None
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
+def phase_cli(n_frames: int = 30, ckpt_at: int = 15):
+    """The CLI on the flagship orbit (30 frames at full budgets, a
+    checkpoint at frame 15) in a subprocess, then resumed from that
+    checkpoint: both exit 0, print an ATE under 0.02 m and leave their
+    files."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="mf_cli_")
+    try:
+        out = os.path.join(tmp, "out")
+        yaml = os.path.join(tmp, "orbit_cli.yaml")
+        with open(yaml, "w") as f:
+            f.write(f'inherit_from: "{root}/configs/synthetic/orbit.yaml"\n'
+                    f'data:\n  output: "{out}"\n  exp_name: "cli"\n'
+                    f"mesh:\n  ckpt_freq: {ckpt_at}\n")
+        exp = os.path.join(out, "cli")
+        for label, extra in (("run", []), ("resume", [
+                "--resume", os.path.join(exp, f"ckpt_{ckpt_at}")])):
+            if label == "resume":
+                # the resumed run must write the end's outputs again
+                shutil.rmtree(os.path.join(exp, "ckpt_final"))
+                for w in ("mesh_final.ply", f"traj_{n_frames - 1}.txt",
+                          "ate_final.txt"):
+                    os.remove(os.path.join(exp, w))
+            t0 = time.time()
+            res = subprocess.run(
+                [sys.executable, "-m", "mipsfusion_tpu_torch", "--config",
+                 yaml, "--n_frames", str(n_frames)] + extra,
+                cwd=root, capture_output=True, text=True, timeout=600)
+            wall = time.time() - t0
+            tail = res.stdout.strip().splitlines()[-2:]
+            print(f"cli {label}: rc {res.returncode}  wall {wall:.1f} s  "
+                  + " / ".join(tail))
+            if res.returncode != 0:
+                _fail(f"cli {label} exited {res.returncode}:\n"
+                      f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+            m = re.search(r"^ATE RMSE: ([0-9.]+) m \| ([0-9.]+) FPS$",
+                          res.stdout, re.M)
+            if m is None:
+                _fail(f"cli {label}: no ATE line in its output")
+            if not float(m.group(1)) < 0.02:
+                _fail(f"cli {label}: ATE {m.group(1)} m >= 0.02 m")
+            want = [f"ckpt_{ckpt_at}", "ckpt_final", "mesh_final.ply",
+                    f"traj_{n_frames - 1}.txt", "render_00000.png",
+                    "ate_final.txt"]
+            missing = [w for w in want
+                       if not os.path.exists(os.path.join(exp, w))]
+            if missing:
+                _fail(f"cli {label}: missing outputs {missing}")
+            for w in ("ckpt.npz", "model_0.npz", "opt_state.npz"):
+                if not os.path.exists(os.path.join(exp, "ckpt_final", w)):
+                    _fail(f"cli {label}: ckpt_final lacks {w}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def switch_ba_alone(slam, ds):
@@ -804,14 +977,19 @@ OUTBACK_SEEDS = (0, 1, 2)
 
 
 def phase_outbacks(seeds=OUTBACK_SEEDS):
-    """The outback once per seed; returns the launch counts of every run
-    and those of the first run that closed a loop (the main path)."""
-    runs = [(s, *phase_outback(seed=s)) for s in seeds]
+    """The outback once per seed, the first run that closes a loop (the
+    main path) meshed; returns the launch counts of every run, those of
+    the main path and the mesher's."""
+    runs, mesh_counts = [], None
+    for s in seeds:
+        counts, closed, mc = phase_outback(seed=s, mesh=mesh_counts is None)
+        runs.append((s, counts, closed))
+        mesh_counts = mesh_counts or mc
     closing = [counts for _, counts, closed in runs if closed]
     if not closing:
         _fail(f"outback: no run of seeds {list(seeds)} closed a loop "
               "(switch back with switch BA and PGO)")
-    return {s: counts for s, counts, _ in runs}, closing[0]
+    return {s: counts for s, counts, _ in runs}, closing[0], mesh_counts
 
 
 def trace_outback(slam, ds, spawn=None):
@@ -968,7 +1146,8 @@ def main(argv=None):
         return 0
     k0_launches = fc.launch_counts()["encode_forward"]
     orbit_counts = phase_slam()
-    by_seed, counts = phase_outbacks()
+    by_seed, counts, mesh_counts = phase_outbacks()
+    phase_cli()
     # K0 has no SLAM caller (as triplane_encode_pallas has none in the JAX
     # package): no loop may launch it
     k0_loops = [orbit_counts["encode_forward"]] + [
@@ -988,6 +1167,8 @@ def main(argv=None):
             "launches_outback_by_seed": {s: c[name]
                                          for s, c in by_seed.items()},
             "launches_orbit": orbit_counts[name],
+            # the mesher's launches on the main path's run
+            "launches_mesh": mesh_counts[name],
             "slam_caller": on_path,
             "max_abs_err": r["max_abs_err"],
             # "ms", "plain_ms" and the bound at the first shape measured

@@ -1,17 +1,308 @@
-"""The flagship configurations written out in Python.
+"""Config: a YAML loader without PyYAML, and the flagship configurations.
+
+``load_config``, ``update_recursive`` and ``apply_overrides`` are the port
+of ``mipsfusion_tpu/config.py``. The card's machine has no PyYAML, so
+``load_config`` parses the subset of YAML that ``configs/base.yaml`` and
+``configs/synthetic/*.yaml`` use: nested block mappings (spaces only),
+``#`` comments, plain and quoted scalars (ints, floats with a dot and an
+optional signed exponent, ``True``/``False``, null) and one-line flow
+lists, nested ones included. Scalars resolve as PyYAML's YAML 1.1 rules
+resolve them. Anything outside the subset (block sequences, flow
+mappings, anchors, tags, block scalars, multi-line values, duplicate keys,
+a numeric-looking plain scalar those rules would read as a string, such as
+``1e-5``) raises, so a config is never misread. ``inherit_from`` resolves
+as the JAX loader resolves it.
 
 ``FLAGSHIP_ORBIT`` is ``configs/base.yaml`` merged with
 ``configs/synthetic/orbit.yaml`` and ``FLAGSHIP_OUTBACK`` the same base
-merged with ``configs/synthetic/outback.yaml`` (what
-``mipsfusion_tpu.config.load_config`` returns for each yaml), so the port
-runs without PyYAML. ``tests/test_torch_slice.py`` and
-``tests/test_torch_multi.py`` hold them equal to the merged yamls.
+merged with ``configs/synthetic/outback.yaml``, written out in Python.
+``tests/test_torch_slice.py`` and ``tests/test_torch_multi.py`` hold them
+equal to the merged yamls.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict
+import os
+import re
+from typing import Any, Dict, List, Optional, Tuple
+
+# PyYAML's implicit resolvers (YAML 1.1) for the scalar types the configs use
+_BOOL = {"yes": True, "Yes": True, "YES": True, "no": False, "No": False,
+         "NO": False, "true": True, "True": True, "TRUE": True,
+         "false": False, "False": False, "FALSE": False, "on": True,
+         "On": True, "ON": True, "off": False, "Off": False, "OFF": False}
+_NULL = {"~", "null", "Null", "NULL"}
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*\.[0-9_]*|\.[0-9_]+)"
+                    r"(?:[eE][-+][0-9]+)?$")
+_SPECIAL_FLOAT = {".inf": float("inf"), ".Inf": float("inf"),
+                  ".INF": float("inf"), "+.inf": float("inf"),
+                  "+.Inf": float("inf"), "+.INF": float("inf"),
+                  "-.inf": float("-inf"), "-.Inf": float("-inf"),
+                  "-.INF": float("-inf"), ".nan": float("nan"),
+                  ".NaN": float("nan"), ".NAN": float("nan")}
+# plain scalars that start like a number but that the rules above do not
+# read as one (1e-5, 0x1f, 017, 1:30): PyYAML would return a string
+_NUMERIC_LOOKING = re.compile(r"[-+]?\.?[0-9]")
+_KEY = re.compile(r"([A-Za-z_][A-Za-z0-9_.\-]*)\s*:(?:\s+|$)(.*)$")
+
+
+class YamlSubsetError(ValueError):
+    """A config uses YAML outside the subset ``load_config`` reads."""
+
+
+def _strip_comment(text: str, where: str) -> str:
+    """``text`` without a trailing ``# comment`` (a ``#`` at the start or
+    after whitespace, outside quotes)."""
+    quote = None
+    for i, c in enumerate(text):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in "\"'":
+            quote = c
+        elif c == "#" and (i == 0 or text[i - 1] in " \t"):
+            return text[:i].rstrip()
+    if quote:
+        raise YamlSubsetError(f"{where}: unterminated quote")
+    return text.rstrip()
+
+
+def _quoted(text: str, where: str) -> str:
+    q = text[0]
+    if len(text) < 2 or text[-1] != q:
+        raise YamlSubsetError(f"{where}: bad quoted scalar {text!r}")
+    body = text[1:-1]
+    if q == "'":
+        if re.search(r"(?<!')'(?!')", body.replace("''", "")):
+            raise YamlSubsetError(f"{where}: bad quoted scalar {text!r}")
+        return body.replace("''", "'")
+    out, i = [], 0
+    esc = {"\\": "\\", '"': '"', "n": "\n", "t": "\t", "/": "/", "0": "\0"}
+    while i < len(body):
+        c = body[i]
+        if c == '"':
+            raise YamlSubsetError(f"{where}: bad quoted scalar {text!r}")
+        if c == "\\":
+            if i + 1 >= len(body) or body[i + 1] not in esc:
+                raise YamlSubsetError(f"{where}: escape outside the subset "
+                                      f"in {text!r}")
+            out.append(esc[body[i + 1]])
+            i += 2
+            continue
+        out.append(c)
+        i += 1
+    return "".join(out)
+
+
+def _scalar(text: str, where: str) -> Any:
+    text = text.strip()
+    if text[:1] in "\"'":
+        return _quoted(text, where)
+    if not text or text in _NULL:
+        return None
+    if text[0] in "&*!|>%@`{}[],?-" and text not in _SPECIAL_FLOAT \
+            and not _NUMERIC_LOOKING.match(text):
+        raise YamlSubsetError(f"{where}: {text!r} is outside the YAML "
+                              "subset (anchor, alias, tag, block scalar, "
+                              "flow mapping or block sequence)")
+    if ": " in text or text.endswith(":") or " #" in text:
+        raise YamlSubsetError(f"{where}: plain scalar {text!r} holds ': ' "
+                              "or ' #'")
+    if text in _BOOL:
+        return _BOOL[text]
+    if text in _SPECIAL_FLOAT:
+        return _SPECIAL_FLOAT[text]
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if _FLOAT.match(text):
+        return float(text.replace("_", ""))
+    if _NUMERIC_LOOKING.match(text):
+        raise YamlSubsetError(f"{where}: {text!r} looks like a number but "
+                              "YAML 1.1 would read it as a string; write it "
+                              "with a dot and a signed exponent (1.0e-5) or "
+                              "quote it")
+    return text
+
+
+def _flow_list(text: str, where: str) -> List[Any]:
+    """A one-line flow list ``[a, "b", [c, d]]``."""
+    pos = 0
+
+    def parse_list() -> List[Any]:
+        nonlocal pos
+        assert text[pos] == "["
+        pos += 1
+        items: List[Any] = []
+        expect_item = True
+        while True:
+            while pos < len(text) and text[pos] == " ":
+                pos += 1
+            if pos >= len(text):
+                raise YamlSubsetError(f"{where}: unterminated flow list")
+            c = text[pos]
+            if c == "]":
+                if expect_item and items:
+                    raise YamlSubsetError(f"{where}: trailing comma in "
+                                          f"{text!r}")
+                pos += 1
+                return items
+            if not expect_item:
+                if c != ",":
+                    raise YamlSubsetError(f"{where}: bad flow list {text!r}")
+                pos += 1
+                expect_item = True
+                continue
+            if c == "[":
+                items.append(parse_list())
+            elif c in "\"'":
+                end = pos + 1
+                while True:
+                    end = text.find(c, end)
+                    if end < 0:
+                        raise YamlSubsetError(f"{where}: unterminated quote")
+                    if c == "'" and text[end + 1:end + 2] == "'":
+                        end += 2
+                        continue
+                    if c == '"' and text[end - 1] == "\\":
+                        end += 1
+                        continue
+                    break
+                items.append(_quoted(text[pos:end + 1], where))
+                pos = end + 1
+            elif c in "{,":
+                raise YamlSubsetError(f"{where}: flow mapping or empty item "
+                                      f"in {text!r}")
+            else:
+                end = pos
+                while end < len(text) and text[end] not in ",]":
+                    end += 1
+                items.append(_scalar(text[pos:end], where))
+                pos = end
+            expect_item = False
+
+    out = parse_list()
+    if text[pos:].strip():
+        raise YamlSubsetError(f"{where}: text after the flow list in "
+                              f"{text!r}")
+    return out
+
+
+def _value(text: str, where: str) -> Any:
+    return _flow_list(text, where) if text.startswith("[") else \
+        _scalar(text, where)
+
+
+def parse_yaml_subset(text: str, name: str = "<yaml>") -> Dict[str, Any]:
+    """Parse a YAML document of the subset described in the module
+    docstring into a dict; raise ``YamlSubsetError`` outside it."""
+    lines: List[Tuple[int, int, str]] = []      # (line no, indent, content)
+    for no, raw in enumerate(text.splitlines(), 1):
+        where = f"{name}:{no}"
+        if "\t" in raw[:len(raw) - len(raw.lstrip())]:
+            raise YamlSubsetError(f"{where}: tab indentation")
+        body = _strip_comment(raw, where)
+        if not body.strip():
+            continue
+        if body.strip() in ("---", "...") or body.startswith("%"):
+            raise YamlSubsetError(f"{where}: document markers and "
+                                  "directives are outside the subset")
+        lines.append((no, len(body) - len(body.lstrip(" ")), body.strip()))
+
+    pos = 0
+
+    def block(indent: int) -> Dict[str, Any]:
+        nonlocal pos
+        out: Dict[str, Any] = {}
+        while pos < len(lines):
+            no, ind, content = lines[pos]
+            where = f"{name}:{no}"
+            if ind < indent:
+                break
+            if ind > indent:
+                raise YamlSubsetError(f"{where}: unexpected indentation")
+            if content.startswith("- ") or content == "-":
+                raise YamlSubsetError(f"{where}: block sequences are "
+                                      "outside the subset; write a flow "
+                                      "list [a, b]")
+            m = _KEY.match(content)
+            if m is None:
+                raise YamlSubsetError(f"{where}: expected 'key: value', got "
+                                      f"{content!r}")
+            key, rest = m.group(1), m.group(2).strip()
+            if key in out:
+                raise YamlSubsetError(f"{where}: duplicate key {key!r}")
+            pos += 1
+            if rest:
+                out[key] = _value(rest, where)
+                if pos < len(lines) and lines[pos][1] > indent:
+                    raise YamlSubsetError(
+                        f"{name}:{lines[pos][0]}: a value continues over "
+                        "several lines (outside the subset)")
+            elif pos < len(lines) and lines[pos][1] > indent:
+                out[key] = block(lines[pos][1])
+            else:
+                out[key] = None
+        return out
+
+    if lines and lines[0][1] != 0:
+        raise YamlSubsetError(f"{name}:{lines[0][0]}: the document must "
+                              "start at column 0")
+    return block(0)
+
+
+def _read_yaml(path: str) -> Dict[str, Any]:
+    with open(path, "r") as f:
+        return parse_yaml_subset(f.read(), path)
+
+
+def update_recursive(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
+    """Deep-merge ``src`` into ``dst`` in place (src wins on leaves)."""
+    for k, v in src.items():
+        if k not in dst:
+            dst[k] = {}
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            update_recursive(dst[k], v)
+        else:
+            dst[k] = v
+
+
+def load_config(path: str,
+                default_path: Optional[str] = None) -> Dict[str, Any]:
+    """Load a config yaml, resolving ``inherit_from`` chains: the parent
+    path is tried relative to the working directory first, then to the
+    child file's directory; the child's values win on a deep merge."""
+    cfg_special = _read_yaml(path)
+    inherit = cfg_special.get("inherit_from")
+    if inherit is not None:
+        if not os.path.exists(inherit):
+            candidate = os.path.join(os.path.dirname(path), inherit)
+            if os.path.exists(candidate):
+                inherit = candidate
+        cfg = load_config(inherit, default_path)
+    elif default_path is not None:
+        cfg = _read_yaml(default_path)
+    else:
+        cfg = {}
+    update_recursive(cfg, cfg_special)
+    cfg.pop("inherit_from", None)
+    return cfg
+
+
+def apply_overrides(cfg: Dict[str, Any],
+                    overrides: Dict[str, Any]) -> Dict[str, Any]:
+    """A copy of ``cfg`` with dotted-path overrides applied, e.g.
+    ``apply_overrides(cfg, {"mapping.iters": 5})``."""
+    out = copy.deepcopy(cfg)
+    for dotted, value in overrides.items():
+        node = out
+        parts = dotted.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return out
+
 
 FLAGSHIP_ORBIT: Dict[str, Any] = {
     "dataset": "synthetic",

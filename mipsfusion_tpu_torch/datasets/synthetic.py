@@ -147,6 +147,10 @@ class SyntheticDataset:
         self.num_frames = n_frames
         self.device = resolve_device(device)
         syn = cfg.get("synthetic", {})
+        if syn.get("props", "classic") != "classic" or syn.get("noise"):
+            raise NotImplementedError(
+                "synthetic.props other than 'classic' and synthetic.noise "
+                "are not ported")
         self.room_half = torch.tensor(syn.get("room_half", [3.0, 2.2, 2.5]),
                                       dtype=torch.float32, device=self.device)
         self.props = props_on(self.device)

@@ -1,12 +1,14 @@
 """TUM-style absolute trajectory error (ATE) with Horn alignment.
 
 The port's copy of ``mipsfusion_tpu/eval/ate.py`` (``align_horn``,
-``evaluate_ate``, ``pose_evaluation``): closed-form SE(3) alignment of the
+``evaluate_ate``, ``pose_evaluation``, ``save_traj_tum``): closed-form SE(3) alignment of the
 estimated trajectory onto GT (Horn 1987, unit scale), then translational
 RMSE/mean/median over matched frames. Frames whose GT pose contains
 NaN/Inf are masked out.
 
-Pure numpy: evaluation runs on the host, off the hot path.
+Numpy on the host, off the hot path (the TUM writer's quaternions come
+from the port's float32 ``matrix_to_quaternion`` on the CPU, as the JAX
+writer's come from its float32 one).
 """
 
 from __future__ import annotations
@@ -75,3 +77,17 @@ def pose_evaluation(poses_gt: np.ndarray, poses_est: np.ndarray,
             for k, v in results.items():
                 f.write(f"{k}: {v}\n")
     return results
+
+
+def save_traj_tum(poses: np.ndarray, path: str) -> None:
+    """Write [N,4,4] poses as TUM lines: t tx ty tz qx qy qz qw."""
+    import torch
+    from ..ops.geometry import matrix_to_quaternion
+
+    quats = matrix_to_quaternion(torch.as_tensor(
+        np.asarray(poses[:, :3, :3]), dtype=torch.float32)).numpy()
+    with open(path, "w") as f:
+        for i, (pose, q) in enumerate(zip(poses, quats)):
+            t = pose[:3, 3]
+            # TUM order: qx qy qz qw (real-last)
+            f.write(f"{i} {t[0]} {t[1]} {t[2]} {q[1]} {q[2]} {q[3]} {q[0]}\n")

@@ -1,11 +1,14 @@
-"""Build and bind the CUDA kernels (nvcc -> shared library -> ctypes).
+"""Build and bind the CUDA kernels (nvcc -> shared library -> ctypes) and
+the host marching-cubes library (c++ -> shared library -> ctypes).
 
-The sources under ``mipsfusion_tpu_torch/csrc`` have a plain C interface,
-so they compile with nvcc alone in seconds (no PyTorch headers), one nvcc
-process per source in parallel. The library is built at first use into
-``mipsfusion_tpu_torch/build/``, named by a hash of the sources, and
-loaded with ctypes; every pointer and the
-stream go as ``c_void_p``. Nothing here runs at import time.
+The CUDA sources under ``mipsfusion_tpu_torch/csrc`` (``*.cu``, ``*.cuh``)
+have a plain C interface, so they compile with nvcc alone in seconds (no
+PyTorch headers), one nvcc process per source in parallel. The library is
+built at first use into ``mipsfusion_tpu_torch/build/``, named by a hash
+of the sources, and loaded with ctypes; every pointer and the stream go
+as ``c_void_p``. ``csrc/marching.cpp`` is host code: ``marching_lib``
+builds it with the host ``c++`` the same way, on the CPU as on the card's
+machine. A failed build raises. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -120,6 +123,62 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+MARCHING_SRC = os.path.join(CSRC, "marching.cpp")
+MARCHING_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
+_marching = None
+
+
+def _cxx() -> str:
+    path = shutil.which("c++") or shutil.which("g++")
+    if path is None:
+        raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: the "
+                           "mesher's marching cubes is built with it")
+    return path
+
+
+def marching_path() -> str:
+    h = hashlib.sha256()
+    with open(MARCHING_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(MARCHING_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libmf_marching_{h.hexdigest()[:16]}.so")
+
+
+def marching_lib() -> ctypes.CDLL:
+    """The host marching-cubes library (built with c++ on first call)."""
+    global _marching
+    if _marching is not None:
+        return _marching
+    out = marching_path()
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            res = subprocess.run([_cxx()] + MARCHING_FLAGS
+                                 + ["-o", tmp, MARCHING_SRC],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"c++ failed on marching.cpp "
+                                   f"({res.returncode}):\n{res.stderr}")
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    handle = ctypes.CDLL(out)
+    handle.mc_extract.restype = ctypes.c_int
+    handle.mc_extract.argtypes = [
+        _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+        ctypes.c_float, ctypes.POINTER(ctypes.POINTER(ctypes.c_double)),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.POINTER(ctypes.c_int64)]
+    handle.mc_free.restype = None
+    handle.mc_free.argtypes = [_P]
+    _marching = handle
+    return _marching
 
 
 def check(err: int, what: str) -> None:

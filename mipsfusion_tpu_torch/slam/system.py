@@ -16,8 +16,17 @@ then verification and ICP only when the host asks for it (the JAX
 package's speculative fused program exists to save round trips through a
 remote TPU link; both give the same decisions).
 
+The output half: ``run`` writes, at the JAX package's cadences, the
+evaluation, TUM trajectory, render panel and trajectory plot
+(``mesh.vis``), checkpoints (``mesh.ckpt_freq``; ``save_checkpoint``,
+``resume_from``), meshes (``mesh.mesh_freq`` or ``request_mesh``;
+``extract_mesh``, the joint mesh fusing every submap's SDF), and at the
+end the trajectory, ``ckpt_final`` and ``mesh_final.ply`` with its
+accuracy and completion on a synthetic scene. A meshing failure raises
+(the JAX package prints it and carries on).
+
 Left out (later slices): the drift gate, the RO levers, the SDF-
-consistency global BA, sharded refinement, checkpoints, meshing.
+consistency global BA, sharded refinement.
 
 Randomness: one ``torch.Generator`` per stage, reseeded from (config seed,
 stage, frame index or call count) at each use, so a run is reproducible
@@ -26,6 +35,7 @@ on one device.
 
 from __future__ import annotations
 
+import os
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
@@ -34,7 +44,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..eval.ate import pose_evaluation
+from ..eval.ate import pose_evaluation, save_traj_tum
 from ..models import scene_rep as sr
 from ..ops.geometry import (get_frame_surface_bbox, pose_inverse,
                             project_to_pixel, pts_in_bbox, qt_to_matrix,
@@ -45,7 +55,8 @@ from . import mapper, pose_graph, tracker
 from . import state as slam_state
 from .state import SlamState
 
-_STAGE_SEED = {"track": 1, "ba": 2, "init": 3, "refine": 4, "switch": 5}
+_STAGE_SEED = {"track": 1, "ba": 2, "init": 3, "refine": 4, "switch": 5,
+               "render": 6}
 
 # Relative damping of the loop-closure ICP (icp_point_to_plane). The JAX
 # package solves undamped; on the flagship outback's forced switch back
@@ -296,16 +307,20 @@ def overlap_verify_icp(st: SlamState, depth, rays_d, pose_world,
 
 class MIPSFusionTorch:
     """Online multi-implicit-submap neural RGB-D SLAM in PyTorch, on
-    ``device`` (None: the card; ``"cpu"`` for a CPU run)."""
+    ``device`` (None: the card; ``"cpu"`` for a CPU run). Without a
+    ``dataset`` the config's is built (``datasets.dataset.get_dataset``)."""
 
-    def __init__(self, config: Dict, dataset, device=None):
+    def __init__(self, config: Dict, dataset=None, device=None):
         m = config["mapping"]
         if m.get("global_BA", {}).get("sdf_consistency", False):
             raise NotImplementedError(
                 "mapping.global_BA.sdf_consistency is not ported")
         self.config = config
-        self.dataset = dataset
         self.device = resolve_device(device)
+        if dataset is None:
+            from ..datasets.dataset import get_dataset
+            dataset = get_dataset(config, self.device)
+        self.dataset = dataset
         self.H, self.W = dataset.H, dataset.W
 
         self.fcfg = sr.FieldConfig.from_dict(config)
@@ -397,6 +412,15 @@ class MIPSFusionTorch:
         # CUDA event pairs per stage (no host sync while the loop runs)
         self._events = defaultdict(list)
         self.stage_calls = defaultdict(int)
+
+        self._mesh_request: Optional[int] = None
+        self.mesh_times: Dict[str, float] = {}
+        out = config.get("data", {}).get("output")
+        self.output_dir = None
+        if out:
+            self.output_dir = os.path.join(
+                out, config["data"].get("exp_name", "exp"))
+            os.makedirs(self.output_dir, exist_ok=True)
 
     @property
     def field(self) -> sr.Field:
@@ -778,29 +802,84 @@ class MIPSFusionTorch:
             self._host_kf_bind[bkf] = bpair
             self.manager.last_binding = None
 
-    def run(self, verbose: bool = True) -> Dict:
-        """Process every frame; returns ATE stats, ``fps`` (frames over the
-        loop's wall time, synchronised at the end) and ``n_submaps``.
-        Frames are rendered before the clock starts."""
-        n = self.dataset.num_frames
-        for j in range(n):
+    def run(self, n_frames: Optional[int] = None, verbose: bool = True,
+            start: int = 0) -> Dict:
+        """Process frames start..n-1 (n: ``n_frames`` or the dataset's);
+        returns ATE stats, ``fps`` ((n - start) frames over the loop's wall
+        time, synchronised at the end) and ``n_submaps``. Frames are
+        rendered before the clock starts. With an output directory it
+        writes what the JAX package's run writes, at its cadences
+        (``mesh.vis``, ``mesh.ckpt_freq``, ``mesh.mesh_freq``), and at the
+        end the trajectory, ``ckpt_final`` and ``mesh_final.ply`` (with
+        mesh accuracy and completion on a synthetic scene, and the wall
+        seconds of the two as ``final_checkpoint_s`` and
+        ``final_mesh_s``)."""
+        n = n_frames or self.dataset.num_frames
+        mesh_cfg = self.config.get("mesh", {})
+        vis_every = mesh_cfg.get("vis", 0)
+        ckpt_every = mesh_cfg.get("ckpt_freq", 0)
+        mesh_every = mesh_cfg.get("mesh_freq", 0)
+        out = self.output_dir
+        for j in range(start, n):
             self.dataset.packed(j)
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.time()
-        for i in range(n):
+        for i in range(start, n):
             self.process_frame(i)
+            if i == 0 and out and vis_every:
+                self.render_debug_images(i)
             if verbose and i % 25 == 0 and i > 0:
                 print(f"frame {i}/{n}  track_loss="
                       f"{float(self.track_losses[-1]):.4f}  submap="
-                      f"{self.active_id}  {i / (time.time() - t0):.2f} fps")
+                      f"{self.active_id}  "
+                      f"{(i - start) / (time.time() - t0):.2f} fps")
+            if out and vis_every and i > 0 and i % vis_every == 0:
+                res = self.evaluate(i, tag=str(i))
+                world = self.world_trajectory(i)
+                save_traj_tum(world, os.path.join(out, f"traj_{i}.txt"))
+                psnr, d_l1 = self.render_debug_images(i)
+                from .logger import plot_traj
+                gt = np.stack([self.dataset.gt_pose(j)
+                               for j in range(i + 1)])
+                plot_traj(gt, world, os.path.join(out, f"traj_{i}.png"))
+                if verbose:
+                    print(f"  [eval@{i}] ATE RMSE "
+                          f"{res['absolute_translational_error.rmse']:.4f}"
+                          f"  render psnr {psnr:.2f} depth L1 {d_l1:.4f} m"
+                          f"  (render_{i:05d}.png, traj_{i}.png)")
+            if out and ckpt_every and i > 0 and i % ckpt_every == 0:
+                self.save_checkpoint(str(i))
+            if mesh_every and i > 0 and i % mesh_every == 0:
+                self._mesh_request = i
+            if self._mesh_request is not None and out:
+                mid = self._mesh_request
+                self._mesh_request = None
+                self.extract_mesh(os.path.join(out, f"mesh_{mid}.ply"))
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         elapsed = time.time() - t0
         results = self.evaluate(n - 1)
-        results["fps"] = n / elapsed
+        results["fps"] = (n - start) / elapsed
         results["n_submaps"] = int(
             self.state.localMLP_info[:, 0].sum().item())
+        if out:
+            t1 = time.perf_counter()
+            save_traj_tum(self.world_trajectory(n - 1),
+                          os.path.join(out, f"traj_{n - 1}.txt"))
+            self.save_checkpoint("final")
+            results["final_checkpoint_s"] = time.perf_counter() - t1
+            if mesh_cfg.get("extract_final", True):
+                t1 = time.perf_counter()
+                verts, _faces, _ = self.extract_mesh(
+                    os.path.join(out, "mesh_final.ply"))
+                results["final_mesh_s"] = time.perf_counter() - t1
+                if hasattr(self.dataset, "room_half") and len(verts):
+                    from ..eval.recon import evaluate_synthetic_mesh
+                    m = evaluate_synthetic_mesh(self, verts=verts)
+                    results["mesh_accuracy_m"] = m["mesh_accuracy_m"]
+                    results["mesh_completion@5cm"] = \
+                        m["mesh_completion@5cm"]
         return results
 
     # ------------------------------------------------------------------
@@ -836,10 +915,158 @@ class MIPSFusionTorch:
         anchors = kf_c2w[first_kf[np.clip(kf_submap[kf_ids], 0, None)]]
         return anchors @ poses_local
 
-    def evaluate(self, up_to: int) -> Dict:
+    def evaluate(self, up_to: int, tag: str = "final") -> Dict:
         """ATE of frames 0..up_to against the dataset's ground truth (any
-        deferred PGO first)."""
+        deferred PGO first); with an output directory also ate_<tag>.txt."""
         self._flush_pending_switch()
         world = self.world_trajectory(up_to)
         gt = np.stack([self.dataset.gt_pose(i) for i in range(up_to + 1)])
-        return pose_evaluation(gt, world)
+        return pose_evaluation(gt, world, self.output_dir, tag)
+
+    def _kf_world_poses(self, kf_ids: np.ndarray) -> torch.Tensor:
+        """World poses [k, 4, 4] of the given keyframes: each lifted
+        through the anchor of its first binding, first keyframes their
+        anchors."""
+        st = self.state
+        ids = torch.as_tensor(np.asarray(kf_ids), dtype=torch.int64,
+                              device=self.device)
+        first_bind = torch.clamp(st.keyframe_localMLP[ids, 0], min=0)
+        anchors = st.kf_c2w[st.localMLP_first_kf[first_bind]]
+        world = anchors @ st.est_c2w[self.kf_frames[ids]]
+        return torch.where((st.keyframe_ref[ids] == -1)[:, None, None],
+                           st.kf_c2w[ids], world)
+
+    # ------------------------------------------------------------------
+    # checkpoints, meshes, render panels
+    # ------------------------------------------------------------------
+
+    def save_checkpoint(self, tag: str = "final") -> Optional[str]:
+        """Write ``<output_dir>/ckpt_<tag>`` (slam/checkpoint.py) after
+        draining any deferred fit or PGO; None without an output
+        directory."""
+        if not self.output_dir:
+            return None
+        self._flush_pending_init()
+        self._flush_pending_switch()
+        from .checkpoint import save_ckpt
+        ckpt_dir = os.path.join(self.output_dir, f"ckpt_{tag}")
+        save_ckpt(ckpt_dir, self.state, self.fields,
+                  extra={"active_id": self.active_id}, opt=self.map_opt,
+                  opt_field=self.field)
+        return ckpt_dir
+
+    def resume_from(self, ckpt_dir: str) -> int:
+        """Restore the state, the submap fields and the active submap's
+        Adam moments from a checkpoint of either package (a fresh
+        optimizer if they do not fit); rebuild the host mirrors (submaps
+        in use, keyframe bindings), so background refinement resumes, and
+        unseed the pose gate. Returns the next frame to process: the one
+        after the last keyframe."""
+        from .checkpoint import load_ckpt, load_opt_state
+        state, fields, extra = load_ckpt(ckpt_dir, like=self.state)
+        self.state = state
+        for i, f in enumerate(fields):
+            if f is not None and i < len(self.fields):
+                self.fields[i] = f
+        self.active_id = int(extra.get("active_id", state.active_submap_id))
+        self.map_opt = mapper.make_map_optimizer(self.field, self.mcfg)
+        load_opt_state(ckpt_dir, self.map_opt, self.field)
+        n_kf = state.n_kf
+        last_frame = int(state.kf_frame_ids[n_kf - 1]) if n_kf else 0
+        self._host_used = int(state.localMLP_info[:, 0].sum().item())
+        self._host_kf_bind = state.keyframe_localMLP.cpu().numpy().copy()
+        self._pending_init_iters = 0
+        self._pending_init_rays = None
+        self._pending_switch = None
+        self._reset_loss_regime()
+        return last_frame + 1
+
+    def request_mesh(self, frame_id: int) -> None:
+        """Ask ``run`` for a mesh at the next frame boundary."""
+        self._mesh_request = int(frame_id)
+
+    def extract_mesh(self, path: Optional[str] = None, joint: bool = True,
+                     voxel_size: Optional[float] = None):
+        """The joint mesh of all submaps in use (one submap: its own mesh),
+        validity from the keyframes' observed-surface occupancy, then the
+        small-component and unseen-face filters; written to ``path`` as
+        PLY if given. Returns (verts, faces, colors); ``self.mesh_times``
+        holds the steps' wall seconds."""
+        from ..mesher.mesher import (MeshConfig, Mesher,
+                                     apply_visibility_filters,
+                                     keyframe_occupancies, save_mesh_ply)
+        self._flush_pending_init()
+        self._flush_pending_switch()
+        st = self.state
+        used = int(st.localMLP_info[:, 0].sum().item())
+        mesh_cfg = self.config.get("mesh", {})
+        voxel = voxel_size or mesh_cfg.get("voxel_final", 0.05)
+        mesher = Mesher(self.fcfg, self.consts, MeshConfig(voxel_size=voxel))
+        bound = np.asarray(self.config["mapping"].get(
+            "marching_cubes_bound", self.config["mapping"]["bound"]))
+        info = st.localMLP_info.cpu().numpy()
+        anchors = st.kf_c2w[st.localMLP_first_kf[:used]].cpu().numpy()
+        params = [self.fields[m].params(detach=True) for m in range(used)]
+        # the field's SDF is in units of trunc: |sdf| < 1 is in the band
+        sdf_trunc_units = 0.99
+        t0 = time.perf_counter()
+
+        # coarse observed-surface occupancy from the keyframes' back-
+        # projected depth: grid points far from any observed surface are
+        # invalid (the SDF is unsupervised there)
+        observed_fn = submap_fns = grid_bounds = None
+        n_kf = st.n_kf
+        kf_world = self._kf_world_poses(np.arange(n_kf)).cpu().numpy()
+        if n_kf and mesh_cfg.get("use_occupancy", True):
+            observed_fn, submap_fns, grid_bounds = keyframe_occupancies(
+                kf_world, st.kf_rays[:n_kf].cpu().numpy(),
+                self._host_kf_bind[:n_kf], used, bound,
+                cvox=mesh_cfg.get("occupancy_voxel", 0.2),
+                dilate=mesh_cfg.get("occupancy_dilate", 1))
+        times = {"occupancy": time.perf_counter() - t0}
+
+        if joint and used > 1:
+            verts, faces, colors = mesher.extract_mesh_jointly(
+                params, anchors, info[:used, 1:4], info[:used, 4:7],
+                trunc=sdf_trunc_units, bound_world=bound,
+                observed_fn=observed_fn, submap_observed_fns=submap_fns,
+                grid_bounds=grid_bounds)
+        else:
+            verts, faces, colors = mesher.extract_single_mesh(
+                params[0], anchors[0], info[0, 1:4], info[0, 4:7],
+                trunc=sdf_trunc_units, bound_world=bound,
+                observed_fn=observed_fn, grid_bounds=grid_bounds)
+        times.update(mesher.times)
+
+        # post-extraction cleanup: small components, faces no keyframe sees
+        t0 = time.perf_counter()
+        if len(verts) and n_kf:
+            kf_max_d = st.kf_rays[:n_kf, :, 6].amax(dim=1).cpu().numpy()
+            ds = self.dataset
+            K_mat = np.asarray([[ds.fx, 0.0, ds.cx], [0.0, ds.fy, ds.cy],
+                                [0.0, 0.0, 1.0]])
+            min_area = mesh_cfg.get("remove_small_geometry_threshold", 0.5)
+            verts, faces, colors = apply_visibility_filters(
+                verts, faces, colors, kf_world, K_mat, self.H, self.W,
+                kf_max_d, min_component_area=min_area)
+        times["filters"] = time.perf_counter() - t0
+        if path:
+            t0 = time.perf_counter()
+            save_mesh_ply(path, verts, faces, colors)
+            times["ply"] = time.perf_counter() - t0
+        self.mesh_times = times
+        return verts, faces, colors
+
+    def render_debug_images(self, i: int):
+        """The ground-truth-vs-render panel of frame i through the active
+        field into the output directory; returns (psnr, depth_l1), or
+        None without an output directory."""
+        if not self.output_dir:
+            return None
+        from .logger import img_render_save
+        packed = self.dataset.packed(i)
+        return img_render_save(
+            self.field.params(detach=True), self.fcfg, self.consts,
+            self.state.est_c2w[i], packed[..., 3:6].cpu().numpy(),
+            packed[..., 6].cpu().numpy(), packed[..., :3], self.output_dir,
+            i, generator=self._generator("render", i))

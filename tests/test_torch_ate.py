@@ -53,6 +53,20 @@ def test_pose_evaluation_matches_jax_package(seed, offset):
     assert out["compared_pose_pairs"] == 39
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_save_traj_tum_matches_jax_package(tmp_path, seed, dtype):
+    """The TUM writer: byte-identical files for the same poses (random
+    rotations reach every branch of the quaternion construction)."""
+    poses = _trajectory(np.random.default_rng(seed), 60).astype(dtype)
+    poses[5, :3, :3] = np.diag([1.0, -1.0, -1.0])       # a 180-degree turn
+    jate.save_traj_tum(poses, str(tmp_path / "jax.txt"))
+    tate.save_traj_tum(poses, str(tmp_path / "port.txt"))
+    ref = (tmp_path / "jax.txt").read_bytes()
+    assert (tmp_path / "port.txt").read_bytes() == ref
+    assert len(ref.splitlines()) == 60
+
+
 def _port_files():
     pkg = os.path.join(ROOT, "mipsfusion_tpu_torch")
     files = [os.path.join(ROOT, "chip_smoke.py")]
@@ -77,6 +91,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     functions: no import of jax or of mipsfusion_tpu."""
     files = _port_files()
     assert len(files) > 20
+    rel = {os.path.relpath(p, ROOT) for p in files}
+    for must in ("mipsfusion_tpu_torch/__main__.py",
+                 "mipsfusion_tpu_torch/mesher/mesher.py",
+                 "mipsfusion_tpu_torch/mesher/marching.py",
+                 "mipsfusion_tpu_torch/vis/render_mesh.py",
+                 "mipsfusion_tpu_torch/slam/checkpoint.py",
+                 "mipsfusion_tpu_torch/slam/logger.py",
+                 "mipsfusion_tpu_torch/eval/recon.py",
+                 "mipsfusion_tpu_torch/datasets/dataset.py"):
+        assert must in rel, must
     bad = [f"{os.path.relpath(p, ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in ("jax", "jaxlib", "mipsfusion_tpu")]
@@ -99,3 +123,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         MIPSFusionTorch(cfg, ds)
     assert MIPSFusionTorch(cfg, ds, device="cpu").device.type == "cpu"
+    # the CLI and the offline mesher default to the card too
+    from mipsfusion_tpu_torch.__main__ import main as cli
+    from mipsfusion_tpu_torch.vis.render_mesh import main as render_mesh
+    path = os.path.join(ROOT, "configs", "synthetic", "orbit.yaml")
+    monkeypatch.chdir(ROOT)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        cli(["--config", path, "--n_frames", "2"])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        render_mesh(["--config", path, "--seq_result", "nowhere"])
