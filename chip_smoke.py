@@ -8,24 +8,31 @@ Phases (any failure raises; the exit code is then non-zero):
                nvcc for sm_90a, one process per source; count the tensor-
                core (HMMA) instructions of K1's and K2's kernels in the
                SASS (cuobjdump -sass, where the toolkit has it);
-  3. kernels - each of K0-K4 against its plain PyTorch version at the SLAM
-               loop's shapes (flagship widths, params from a fixed seed,
-               points inside, outside and on the edge of [0, 1]^3): max
-               abs / relative error beside the tolerance, median times
-               (device time of queued calls, and the time of one call
-               launched on an idle device, wrapper included);
-               K1 also at the GO shape on ray-ordered points and at the
-               refine shape; then K2, K3 and K4 again on ray-ordered
-               points (2600 rays x 75 samples, each ray's samples
-               contiguous, as the loop lays them out), K4 with the PE's
-               share of d_x added, and K2 without weight gradients at the
-               GO shape; K1 and K4 at point counts that are no multiple of
-               a tile (195,001 and 63); K1's packed weights against the
-               plain packer; K1-K4 called twice give the same bits; a
-               SHA-256 of K2's and K3's outputs on fixed inputs (two trees
-               with the same K2 and K3 print the same digests);
+  3. kernels - each of K0-K4 against its plain PyTorch version at every
+               field shape the kernels are compiled for (ops/_build.SHAPES:
+               the flagship's [32, 64] + CP 384 x 40, the CP profile's
+               [32, 64, 128] + CP 512 x 32, the FastCaMo-large family's
+               [32, 64, 128] + CP 384 x 40; labels of the latter two carry
+               "cp:" or "fcl:"), at each shape's loop sizes
+               (KERNEL_SHAPES; params from a fixed seed, points inside,
+               outside and on the edge of [0, 1]^3): max abs / relative
+               error beside the tolerance, median times (device time of
+               queued calls, and the time of one call launched on an idle
+               device, wrapper included), the bound;
+               K1 also at the GO shape on ray-ordered points, at the fit
+               shape and sdf-only at RO's (a call, and for the CP profile
+               a frame's four at once), and on one chunk of the mesher's
+               grid; then K2, K3 and K4 again on ray-ordered
+               points (each ray's samples contiguous, as the loop lays them
+               out), K4 with the PE's share of d_x added, and K2 without
+               weight gradients at the GO shape; K0-K4 at point counts
+               that are no multiple of a tile (195,001 and 63); K1's packed
+               weights against the plain packer; K1-K4 called twice give
+               the same bits; a SHA-256 of K2's and K3's outputs on fixed
+               flagship inputs (two trees with the same K2 and K3 print the
+               same digests);
   4. autograd - FieldQueryT's and TriplaneEncode's gradients against the
-               plain path;
+               plain path, at every shape;
   5. orbit   - 45 frames of the flagship orbit at full budgets,
                single submap (use_manager: False), through
                MIPSFusionTorch.run(): ATE, tracked FPS, launch counts;
@@ -50,7 +57,15 @@ Phases (any failure raises; the exit code is then non-zero):
                configs/synthetic/orbit.yaml (30 frames, a checkpoint at
                frame 15), then again with --resume <out>/ckpt_15: each
                exits 0 with ATE < 0.02 m and leaves its trajectory,
-               checkpoints, render panel and mesh_final.ply.
+               checkpoints, render panel and mesh_final.ply;
+  9. cp profile - configs/synthetic/orbit_fast_cp.yaml as a user runs it
+               (the port's load_config, MIPSFusionTorch(cfg, dataset=
+               SyntheticDataset(cfg)).run(), 200 frames, the manager as
+               the config leaves it): K1-K4 at the cp shape, ATE < 0.02 m,
+               launch counts; then the joint mesh at mesh.voxel_final:
+               completion@5cm > 0.85 and the accuracy of its vertices
+               inside the room < 0.015 m (the whole mesh's accuracy is
+               printed beside the 0.05 m it does not hold).
 The kernels' JSON line comes second to last; the last line is
 {"ok": true, "device": {...}}.
 
@@ -63,7 +78,7 @@ that opens its second submap at that keyframe.
 
     python3 chip_smoke.py --kernels-only
 
-runs phases 1-4 alone (about a minute).
+runs phases 1-4 alone (about a minute and a half).
 """
 
 from __future__ import annotations
@@ -127,21 +142,25 @@ def phase_build(check_hmma: bool = True):
     t0 = time.time()
     path = _build.build(verbose=True)
     _build.lib()
-    print(f"build: {path} in {time.time() - t0:.1f} s")
+    build_s = time.time() - t0
+    print(f"build: {path} in {build_s:.1f} s")
     if not check_hmma:
-        return
+        return build_s
     hmma = sass_hmma(path)
     if hmma is None:
         print("sass: cuobjdump not found, HMMA count not taken")
-        return
-    for what, key, n_min in (("K2", "decoder_bwd", 2),
-                             ("K1", "field_forward_kernel", 3)):
+        return build_s
+    # per shape of the table: K2's two instances, K1's three
+    n_shapes = len(_build.SHAPES)
+    for what, key, n_min in (("K2", "decoder_bwd", 2 * n_shapes),
+                             ("K1", "field_forward_kernel", 3 * n_shapes)):
         found = {k: v for k, v in hmma.items() if key in k}
         print(f"sass HMMA instructions per {what} kernel: "
               + json.dumps(found))
         if len(found) < n_min or not all(v > 0 for v in found.values()):
             _fail(f"{what} kernels without tensor-core instructions: "
                   f"{found}")
+    return build_s
 
 
 def _time_ms(fn, reps: int = 10, groups: int = 3) -> float:
@@ -192,19 +211,31 @@ def _time_idle_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
-def flagship_params(seed: int, device):
-    """Flagship-width field params (a tree) with features brought to O(1)
-    (planes init at 1e-4 would make every comparison trivially small)."""
+def field_params(shape_name: str, seed: int, device):
+    """Field params (a tree) at a shape of the kernels' table, made from a
+    seed, with features brought to O(1) (planes init at 1e-4 would make
+    every comparison trivially small)."""
     import torch
     from mipsfusion_tpu_torch.models.scene_rep import FieldConfig, init_field
     from mipsfusion_tpu_torch.config import FLAGSHIP_ORBIT
-    fcfg = FieldConfig.from_dict(FLAGSHIP_ORBIT)
+    from mipsfusion_tpu_torch.ops import _build
+    shape = next(s for s in _build.SHAPES.values() if s.name == shape_name)
+    cfg = {**FLAGSHIP_ORBIT, "grid": {
+        **FLAGSHIP_ORBIT["grid"], "tri_resolutions": list(shape.resolutions),
+        "cp_resolution": shape.cp_resolution,
+        "cp_components": shape.cp_components}}
+    fcfg = FieldConfig.from_dict(cfg)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     p = init_field(fcfg, g, device)
     p["planes"] = {k: v * (1e4 if k.startswith("s") else 4.0)
                    for k, v in p["planes"].items()}
     return p
+
+
+def flagship_params(seed: int, device):
+    """``field_params`` at the flagship's shape."""
+    return field_params("flag", seed, device)
 
 
 def test_points(n: int, seed: int, device, inside_only: bool = False):
@@ -341,12 +372,14 @@ REPLACES = {
     "x_backward":
         "mipsfusion_tpu/ops/triplane_pallas.py:453 _fused_backward_x",
 }
+# the kernels' bodies (templates over the field shape); csrc/shape.cu,
+# compiled once per shape, instantiates them
 SOURCE = {
-    "encode_forward": "mipsfusion_tpu_torch/csrc/triplane.cu",
-    "field_forward": "mipsfusion_tpu_torch/csrc/field_forward.cu",
-    "decoder_backward": "mipsfusion_tpu_torch/csrc/field.cu",
-    "plane_backward": "mipsfusion_tpu_torch/csrc/triplane.cu",
-    "x_backward": "mipsfusion_tpu_torch/csrc/triplane.cu",
+    "encode_forward": "mipsfusion_tpu_torch/csrc/triplane.cuh",
+    "field_forward": "mipsfusion_tpu_torch/csrc/field_forward.cuh",
+    "decoder_backward": "mipsfusion_tpu_torch/csrc/field.cuh",
+    "plane_backward": "mipsfusion_tpu_torch/csrc/triplane.cuh",
+    "x_backward": "mipsfusion_tpu_torch/csrc/triplane.cuh",
 }
 
 
@@ -359,63 +392,130 @@ PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_MM_F32 = PEAK_TF32 / 3
 PEAK_BYTES = 3.35e12
-# FLOPs per point, (decoder matrix products, the rest), from the flagship
-# widths: encode 2 scales x 3 planes x 4 taps x 4 features x 2 plus CP 40
-# x (3 lerps x 3 + 2 products) = 632; decoder forward 38,233 MACs (6,528 +
-# 16,384 + 14,336 + 640 + 345), sdf-only 29,696 MACs; K2 forward recompute
-# 37,888 + data backward 38,233 (+ weight gradients 38,625) MACs; K3 ~ 24
-# taps x 5 + 40 x 21 = 960; K4 ~ 6 planes x 40 + 40 x 20 = 1,040.
-FLOP_PT = {"encode_forward": (0, 632),
-           "field_forward": (2 * 38_233, 632),
-           "field_forward_noembed": (2 * 38_233, 632),
-           "field_forward_sdf": (2 * 29_696, 632),
-           "decoder_backward": (2 * (37_888 + 38_233 + 38_625), 0),
-           "decoder_backward_go": (2 * (37_888 + 38_233), 0),
-           "plane_backward": (0, 960), "x_backward": (0, 1_040),
-           "x_backward_add": (0, 1_043)}
-TABLE_BYTES = (3 * 32 * 32 * 4 + 3 * 64 * 64 * 4 + 3 * 384 * 40) * 4
-WEIGHT_BYTES = 38_625 * 4
+# FLOPs per point, (decoder matrix products, the rest), at a shape with S
+# plane scales, C CP channels and embed E = 4 S + C (flagship: S 2, C 40,
+# E 48): encode S x 3 planes x 4 taps x 4 features x 2 plus C x (3 lerps
+# x 3 + 2 products) = 632 at the flagship; the decoder forward 6,528 +
+# 16,384 + (64 + E) 128 + 640 + 345 MACs (38,233 at the flagship), sdf
+# only without the rgb half of trunk1 and the rgb layer (29,696); K2
+# forward recompute without the rgb layer (37,888) + data backward (the
+# forward's 38,233) + weight gradients (one per parameter, 38,625); K3 ~
+# 12 S taps x 5 + C x 21 = 960; K4 ~ 3 S planes x 40 + C x 20 = 1,040.
+def _flops_pt(kind: str, shape):
+    S, C, E = shape.n_scales, shape.cp_components, shape.embed_dim
+    sdf_in = (64 + E) * 128
+    full = 6_528 + 16_384 + sdf_in + 640 + 345
+    recompute = full - 345
+    wgrad = shape.grad_offsets[-1]
+    enc = 96 * S + 11 * C
+    return {"encode_forward": (0, enc),
+            "field_forward": (2 * full, enc),
+            "field_forward_noembed": (2 * full, enc),
+            "field_forward_sdf": (2 * (6_528 + 8_192 + sdf_in + 640), enc),
+            "decoder_backward": (2 * (recompute + full + wgrad), 0),
+            "decoder_backward_go": (2 * (recompute + full), 0),
+            "plane_backward": (0, 60 * S + 21 * C),
+            "x_backward": (0, 120 * S + 20 * C),
+            "x_backward_add": (0, 120 * S + 20 * C + 3)}[kind]
+
+
 # bytes per point (each input read once, each output written once) and
 # per call
-BYTES = {"encode_forward": (12 + 192, TABLE_BYTES),
-         "field_forward": (12 + 40 + 192, TABLE_BYTES + WEIGHT_BYTES),
-         "field_forward_noembed": (12 + 40, TABLE_BYTES + WEIGHT_BYTES),
-         "field_forward_sdf": (12 + 4, TABLE_BYTES + WEIGHT_BYTES),
-         "decoder_backward": (12 + 40 + 192 + 12 + 192, 2 * WEIGHT_BYTES),
-         "decoder_backward_go": (12 + 40 + 192 + 12 + 192, WEIGHT_BYTES),
-         "plane_backward": (12 + 192, TABLE_BYTES + 3 * 384 * 40 * 4),
-         "x_backward": (12 + 192 + 12, TABLE_BYTES),
-         "x_backward_add": (12 + 192 + 12 + 12, TABLE_BYTES)}
+def _bytes(kind: str, shape):
+    E4 = 4 * shape.embed_dim
+    table = 4 * (sum(3 * r * r * 4 for r in shape.resolutions)
+                 + 3 * shape.cp_resolution * shape.cp_components)
+    cp = 4 * 3 * shape.cp_resolution * shape.cp_components
+    weights = 4 * shape.grad_offsets[-1]
+    return {"encode_forward": (12 + E4, table),
+            "field_forward": (12 + 40 + E4, table + weights),
+            "field_forward_noembed": (12 + 40, table + weights),
+            "field_forward_sdf": (12 + 4, table + weights),
+            "decoder_backward": (12 + 40 + E4 + 12 + E4, 2 * weights),
+            "decoder_backward_go": (12 + 40 + E4 + 12 + E4, weights),
+            "plane_backward": (12 + E4, table + cp),
+            "x_backward": (12 + E4 + 12, table),
+            "x_backward_add": (12 + E4 + 12 + 12, table)}[kind]
 
 
-def bound(kind: str, n: int):
-    """(bound ms, "bytes" or "operations") of one call on n points."""
-    mm, rest = FLOP_PT[kind]
+def bound(kind: str, n: int, shape=None):
+    """(bound ms, "bytes" or "operations") of one call on n points at a
+    table shape (the flagship's by default)."""
+    if shape is None:
+        from mipsfusion_tpu_torch.ops import _build
+        shape = _build.SHAPES[((32, 64), 4, 384, 40)]
+    mm, rest = _flops_pt(kind, shape)
     flop_ms = (mm / PEAK_MM_F32 + rest / PEAK_F32) * n * 1e3
-    per_pt, fixed = BYTES[kind]
+    per_pt, fixed = _bytes(kind, shape)
     byte_ms = (per_pt * n + fixed) / PEAK_BYTES * 1e3
     return (flop_ms, "operations") if flop_ms >= byte_ms else (byte_ms,
                                                                 "bytes")
 
 
+# The shapes of the kernel phase: every entry of the kernels' table, with
+# the point counts its loop gives the kernels. The flagship's and the
+# FastCaMo-large family's (which inherits base.yaml's budgets): BA 2600
+# rays x 75 samples = 195,000, GO 1000 x 75, the first fit and refine
+# 1800 x 75 = 135,000, RO 2000 particles x 384 px = 768,000 a call. The
+# CP profile's (orbit_fast_cp.yaml inherits orbit_fast.yaml's budgets and
+# its z-ladder of 24 + 15 = 39 samples): BA (1024 + 400) x 39 = 55,536,
+# GO 512 x 39 = 19,968, the first fit 1024 x 39 = 39,936, RO 1024
+# particles x 12 x 16 px = 196,608 a call (786,432 over a frame's four).
+KERNEL_SHAPES = {
+    "flag": {"ba": 195_000, "ba_rays": (2600, 75), "go_rays": (1000, 75),
+             "fit": 135_000, "ro": 768_000},
+    "cp": {"ba": 55_536, "ba_rays": (1424, 39), "go_rays": (512, 39),
+           "fit": 39_936, "ro": 196_608, "ro_frame": 786_432},
+    "fcl": {"ba": 195_000, "ba_rays": (2600, 75), "go_rays": (1000, 75),
+            "fit": 135_000, "ro": 768_000},
+}
+
+
 def phase_kernels():
+    """Every kernel against its plain version at every shape of the table
+    (``kernel_shape_phase``), then the flagship's digests; returns the
+    kernels' rows for the JSON line."""
     import torch
+    rows = {}
+    for name in KERNEL_SHAPES:
+        kernel_shape_phase(name, rows)
+    kernel_digests()
+    torch.cuda.synchronize()
+    return rows
+
+
+def kernel_shape_phase(shape_name: str, rows: dict):
+    """K0-K4 against their plain versions at one shape of the table, at
+    that shape's loop sizes (KERNEL_SHAPES), each label's times beside its
+    bound recorded in ``rows``. Labels at the flagship are as they were
+    before other shapes existed; other shapes' carry the shape's name
+    ("cp:field_forward")."""
+    import torch
+    from mipsfusion_tpu_torch.ops import _build
     from mipsfusion_tpu_torch.ops import field_cuda as fc
     from mipsfusion_tpu_torch.ops import triplane_cuda as tc
     dev = torch.device("cuda")
-    p = flagship_params(0, dev)
+    sz = KERNEL_SHAPES[shape_name]
+    p = field_params(shape_name, 0, dev)
     planes, dec = p["planes"], p["decoder"]
-    meta = (2, 8, 5)
-    rows = {}
+    ns = len([k for k in planes if k.startswith("s")])
+    shape = _build.kernel_shape(planes, ns)
+    E = shape.embed_dim
+    meta = (ns, 8, 5)
+    pre = "" if shape_name == "flag" else f"{shape_name}:"
+    print(f"kernel phase at shape {shape_name}: Triplane "
+          f"{list(shape.resolutions)} x F4 + CP {shape.cp_resolution} x "
+          f"{shape.cp_components}, embed {E}")
 
     def record(name, label, errs, fn, plain_ms, n, kind=None):
         """errs: {output name: (max abs error, relative error)}; fn: the
         kernel's call, timed here both ways."""
+        label = pre + label
         ms, idle_ms = _time_ms(fn), _time_idle_ms(fn)
         part, (worst_abs, worst) = max(errs.items(), key=lambda kv: kv[1][1])
         tol = TOL[name]
-        b_ms, b_by = bound(kind or label.split("@")[0], n)
-        print(f"{label:24s} N={n:7d} max_abs={worst_abs:.3e} "
+        b_ms, b_by = bound(kind or name, n, shape)
+        print(f"{label:28s} N={n:7d} max_abs={worst_abs:.3e} "
               f"max_rel={worst:.3e} ({part}) tol_rel={tol:.0e} "
               f"kernel={ms:.3f} ms (launched idle {idle_ms:.3f} ms) "
               f"plain={plain_ms:.3f} ms "
@@ -437,16 +537,24 @@ def phase_kernels():
         r["bound_ms"][label] = b_ms
         r["bound_by"][label] = b_by
 
-    # K0 at the BA shape (195,000 points), row layout [N, 3] -> [N, 48]
-    x = test_points(195_000, 1, dev)
+    # K0 at the BA shape, row layout [N, 3] -> [N, E]
+    x = test_points(sz["ba"], 1, dev)
     xr0 = x.T.contiguous()
-    out = tc.encode_forward(xr0, planes, 2)
-    ref = tc.encode_forward_plain(planes, xr0, 2)
+    out = tc.encode_forward(xr0, planes, ns)
+    ref = tc.encode_forward_plain(planes, xr0, ns)
     record("encode_forward", "encode_forward", {"embed": _err(out, ref)},
-           lambda: tc.encode_forward(xr0, planes, 2),
-           _time_ms(lambda: tc.encode_forward_plain(planes, xr0, 2)),
+           lambda: tc.encode_forward(xr0, planes, ns),
+           _time_ms(lambda: tc.encode_forward_plain(planes, xr0, ns)),
            x.shape[1])
     del xr0, out, ref
+    # K0 at point counts that are no multiple of its block
+    for n in (195_001, 63):
+        xn = test_points(n, 12, dev).T.contiguous()
+        e = _err(tc.encode_forward(xn, planes, ns),
+                 tc.encode_forward_plain(planes, xn, ns))[1]
+        print(f"{pre}encode_forward N={n}: max_rel={e:.3e}")
+        if not e <= TOL["encode_forward"]:
+            _fail(f"{pre}encode_forward at N={n}: relative error {e:.3e}")
 
     def k1(xx, **mode):
         return fc.field_forward(xx, planes, dec, *meta, **mode)
@@ -463,27 +571,31 @@ def phase_kernels():
         return {"sdf" if mode.get("sdf_only") else "out": _err(got, want)}
 
     # K1's packed weights: the kernel's packer against the plain one
-    if not torch.equal(fc.pack_decoder_weights(dec),
-                       fc.pack_decoder_weights_plain(dec)):
-        _fail("K1: the kernel's packed weights differ from the plain "
+    if not torch.equal(fc.pack_decoder_weights(dec, shape),
+                       fc.pack_decoder_weights_plain(dec, shape)):
+        _fail(f"{pre}K1: the kernel's packed weights differ from the plain "
               "packer's")
     # K1 full with return_embed at the BA shape, at the GO shape on
-    # ray-ordered points (1000 rays x 75 samples) and at the shape of
-    # refine and the fits (135,000 points)
-    xgo = ray_points(1000, 75, 9, dev)
-    x135 = test_points(135_000, 10, dev)
+    # ray-ordered points and at the shape of refine and the fits
+    xgo = ray_points(*sz["go_rays"], 9, dev)
+    xfit = test_points(sz["fit"], 10, dev)
     for label, xx in (("field_forward", x), ("field_forward_go@rays", xgo),
-                      ("field_forward@135k", x135)):
+                      (f"field_forward@{round(sz['fit'] / 1000)}k", xfit)):
         record("field_forward", label, k1_errs(xx, return_embed=True),
                lambda: k1(xx, return_embed=True),
                _time_ms(lambda: k1_plain(xx, return_embed=True)),
                xx.shape[1], kind="field_forward")
-    # K1 sdf_only at the RO shape (2000 particles x 384 pixels)
-    xr = test_points(768_000, 2, dev)
-    record("field_forward", "field_forward_sdf", k1_errs(xr, sdf_only=True),
-           lambda: k1(xr, sdf_only=True),
-           _time_ms(lambda: k1_plain(xr, sdf_only=True), reps=3, groups=1),
-           xr.shape[1])
+    # K1 sdf_only at the RO shape (a call; and a frame's four at once)
+    ro = [("field_forward_sdf", sz["ro"])]
+    if "ro_frame" in sz:
+        ro.append(("field_forward_sdf@frame", sz["ro_frame"]))
+    for label, n in ro:
+        xr = test_points(n, 2, dev)
+        record("field_forward", label, k1_errs(xr, sdf_only=True),
+               lambda: k1(xr, sdf_only=True),
+               _time_ms(lambda: k1_plain(xr, sdf_only=True), reps=3,
+                        groups=1),
+               xr.shape[1], kind="field_forward_sdf")
     # K1 full without the embed (the third instance), then each mode at
     # point counts that are no multiple of the 16-point tile, and twice
     # for the same bits
@@ -496,32 +608,34 @@ def phase_kernels():
     record("field_forward", "field_forward_mesh", k1_errs(xm),
            lambda: k1(xm), _time_ms(lambda: k1_plain(xm)),
            xm.shape[1], kind="field_forward_noembed")
+    del xm
     for n in (195_001, 63):
         xn = test_points(n, 12, dev)
         for mode in ({"return_embed": True}, {}, {"sdf_only": True}):
             errs = k1_errs(xn, **mode)
             part, (_, worst) = max(errs.items(), key=lambda kv: kv[1][1])
-            print(f"field_forward N={n} {mode}: max_rel={worst:.3e} ({part})")
+            print(f"{pre}field_forward N={n} {mode}: max_rel={worst:.3e} "
+                  f"({part})")
             if not worst <= TOL["field_forward"]:
-                _fail(f"field_forward at N={n} {mode}: {errs}")
+                _fail(f"{pre}field_forward at N={n} {mode}: {errs}")
     for mode in ({"return_embed": True}, {}, {"sdf_only": True}):
-        same(f"field_forward {'/'.join(mode) or 'full'}", k1(xgo, **mode),
-             k1(xgo, **mode))
-    del xr, xgo, x135, xn, xm
+        same(f"{pre}field_forward {'/'.join(mode) or 'full'}",
+             k1(xgo, **mode), k1(xgo, **mode))
+    del xr, xfit, xn
 
     # K2-K4 at the BA shape with a random cotangent: uniform points, then
-    # ray-ordered points (2600 rays x 75 samples)
+    # ray-ordered points
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    xrays = ray_points(2600, 75, 8, dev)
+    xrays = ray_points(*sz["ba_rays"], 8, dev)
     for suffix, xx in (("", x), ("@rays", xrays)):
         n = xx.shape[1]
         emb = fc.field_forward(xx, planes, dec, *meta, return_embed=True)[1]
         g = torch.randn((10, n), generator=gen, device=dev) * 0.1
         g, frac = kink_free(g, xx, emb, dec)
-        print(f"decoder_backward{suffix}: cotangent zeroed at {frac:.4%} "
-              "of points (ReLU pre-activation within 1e-4 of 0)")
-        d_embed = torch.randn((48, n), generator=gen, device=dev) * 0.1
+        print(f"{pre}decoder_backward{suffix}: cotangent zeroed at "
+              f"{frac:.4%} of points (ReLU pre-activation within 1e-4 of 0)")
+        d_embed = torch.randn((E, n), generator=gen, device=dev) * 0.1
         r2 = fc.decoder_backward_plain(xx, g, emb, dec, 8, 5)
         plain2 = _time_ms(lambda: fc.decoder_backward_plain(xx, g, emb, dec,
                                                             8, 5))
@@ -533,80 +647,97 @@ def phase_kernels():
         record("decoder_backward", f"decoder_backward{suffix}", errs,
                lambda: fc.decoder_backward(xx, g, emb, dec, 8, 5),
                plain2, n, kind="decoder_backward")
-        k3 = tc.plane_backward(xx, d_embed, planes, 2)
-        r3 = tc.plane_backward_plain(xx, d_embed, planes, 2)
+        k3 = tc.plane_backward(xx, d_embed, planes, ns)
+        r3 = tc.plane_backward_plain(xx, d_embed, planes, ns)
         # K2 and K3 give the same bits in every call (fixed-order partial
         # sums; fixed-point integer atomics)
-        same(f"decoder_backward{suffix}", k2,
+        same(f"{pre}decoder_backward{suffix}", k2,
              fc.decoder_backward(xx, g, emb, dec, 8, 5))
-        same(f"plane_backward{suffix}", k3,
-             tc.plane_backward(xx, d_embed, planes, 2))
+        same(f"{pre}plane_backward{suffix}", k3,
+             tc.plane_backward(xx, d_embed, planes, ns))
         record("plane_backward", f"plane_backward{suffix}",
-               {k: _err(k3[k], r3[k]) for k in ("s0", "s1", "cp")},
-               lambda: tc.plane_backward(xx, d_embed, planes, 2),
+               {k: _err(k3[k], r3[k]) for k in r3},
+               lambda: tc.plane_backward(xx, d_embed, planes, ns),
                _time_ms(lambda: tc.plane_backward_plain(xx, d_embed, planes,
-                                                        2)),
+                                                        ns)),
                n, kind="plane_backward")
-        k4 = tc.x_backward(xx, d_embed, planes, 2)
-        r4 = tc.x_backward_plain(xx, d_embed, planes, 2)
+        k4 = tc.x_backward(xx, d_embed, planes, ns)
+        r4 = tc.x_backward_plain(xx, d_embed, planes, ns)
         record("x_backward", f"x_backward{suffix}", {"d_x": _err(k4, r4)},
-               lambda: tc.x_backward(xx, d_embed, planes, 2),
-               _time_ms(lambda: tc.x_backward_plain(xx, d_embed, planes, 2)),
+               lambda: tc.x_backward(xx, d_embed, planes, ns),
+               _time_ms(lambda: tc.x_backward_plain(xx, d_embed, planes,
+                                                    ns)),
                n, kind="x_backward")
         # K4 with the PE's share of d_x added (K2's d_x), as FieldQueryT
         # calls it, and twice for the same bits
-        k4a = tc.x_backward(xx, d_embed, planes, 2, d_x_pe=k2[0])
+        k4a = tc.x_backward(xx, d_embed, planes, ns, d_x_pe=k2[0])
         record("x_backward", f"x_backward_add{suffix}",
                {"d_x": _err(k4a, k2[0] + r4)},
-               lambda: tc.x_backward(xx, d_embed, planes, 2, d_x_pe=k2[0]),
+               lambda: tc.x_backward(xx, d_embed, planes, ns, d_x_pe=k2[0]),
                _time_ms(lambda: k2[0] + tc.x_backward_plain(
-                   xx, d_embed, planes, 2)),
+                   xx, d_embed, planes, ns)),
                n, kind="x_backward_add")
-        same(f"x_backward{suffix}", (k4, k4a),
-             (tc.x_backward(xx, d_embed, planes, 2),
-              tc.x_backward(xx, d_embed, planes, 2, d_x_pe=k2[0])))
+        same(f"{pre}x_backward{suffix}", (k4, k4a),
+             (tc.x_backward(xx, d_embed, planes, ns),
+              tc.x_backward(xx, d_embed, planes, ns, d_x_pe=k2[0])))
         del emb, g, d_embed, r2, r3, k2, k3, k4, r4, k4a
 
-    # K4 at point counts that are no multiple of its 32-point block
+    # K2, K3 and K4 at point counts that are no multiple of a tile or block
     for n in (195_001, 63):
         xn = test_points(n, 13, dev)
-        d_embed = torch.randn((48, n), generator=gen, device=dev) * 0.1
+        emb = fc.field_forward(xn, planes, dec, *meta, return_embed=True)[1]
+        g, _ = kink_free(torch.randn((10, n), generator=gen, device=dev)
+                         * 0.1, xn, emb, dec)
+        d_embed = torch.randn((E, n), generator=gen, device=dev) * 0.1
         add = torch.randn((3, n), generator=gen, device=dev)
-        e = max(_err(tc.x_backward(xn, d_embed, planes, 2),
-                     tc.x_backward_plain(xn, d_embed, planes, 2))[1],
-                _err(tc.x_backward(xn, d_embed, planes, 2, d_x_pe=add),
-                     tc.x_backward_plain(xn, d_embed, planes, 2,
-                                         d_x_pe=add))[1])
-        print(f"x_backward N={n}: max_rel={e:.3e}")
-        if not e <= TOL["x_backward"]:
-            _fail(f"x_backward at N={n}: relative error {e:.3e}")
+        k2, r2 = (fc.decoder_backward(xn, g, emb, dec, 8, 5),
+                  fc.decoder_backward_plain(xn, g, emb, dec, 8, 5))
+        k3, r3 = (tc.plane_backward(xn, d_embed, planes, ns),
+                  tc.plane_backward_plain(xn, d_embed, planes, ns))
+        errs = {"K2": max(_err(a, b)[1] for a, b in zip(_flat(k2),
+                                                         _flat(r2))),
+                "K3": max(_err(k3[k], r3[k])[1] for k in r3),
+                "K4": max(_err(tc.x_backward(xn, d_embed, planes, ns),
+                               tc.x_backward_plain(xn, d_embed, planes,
+                                                   ns))[1],
+                          _err(tc.x_backward(xn, d_embed, planes, ns,
+                                             d_x_pe=add),
+                               tc.x_backward_plain(xn, d_embed, planes, ns,
+                                                   d_x_pe=add))[1])}
+        print(f"{pre}K2/K3/K4 N={n}: max_rel "
+              + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+        for k, name in (("K2", "decoder_backward"), ("K3", "plane_backward"),
+                        ("K4", "x_backward")):
+            if not errs[k] <= TOL[name]:
+                _fail(f"{pre}{name} at N={n}: relative error {errs[k]:.3e}")
 
     # K2 without weight gradients (GO: pose gradients only) at the GO shape
-    # (1000 rays x 75 samples)
-    xg = ray_points(1000, 75, 9, dev)
-    emb = fc.field_forward(xg, planes, dec, *meta, return_embed=True)[1]
-    g = torch.randn((10, xg.shape[1]), generator=gen, device=dev) * 0.1
-    g, _ = kink_free(g, xg, emb, dec)
-    k2 = fc.decoder_backward(xg, g, emb, dec, 8, 5, weight_grads=False)
-    r2 = fc.decoder_backward_plain(xg, g, emb, dec, 8, 5, weight_grads=False)
+    emb = fc.field_forward(xgo, planes, dec, *meta, return_embed=True)[1]
+    g = torch.randn((10, xgo.shape[1]), generator=gen, device=dev) * 0.1
+    g, _ = kink_free(g, xgo, emb, dec)
+    k2 = fc.decoder_backward(xgo, g, emb, dec, 8, 5, weight_grads=False)
+    r2 = fc.decoder_backward_plain(xgo, g, emb, dec, 8, 5,
+                                   weight_grads=False)
     record("decoder_backward", "decoder_backward_go@rays",
            {"d_x": _err(k2[0], r2[0]), "d_embed": _err(k2[1], r2[1])},
-           lambda: fc.decoder_backward(xg, g, emb, dec, 8, 5,
+           lambda: fc.decoder_backward(xgo, g, emb, dec, 8, 5,
                                        weight_grads=False),
            _time_ms(lambda: fc.decoder_backward_plain(
-               xg, g, emb, dec, 8, 5, weight_grads=False)),
-           xg.shape[1], kind="decoder_backward_go")
-    kernel_digests()
+               xgo, g, emb, dec, 8, 5, weight_grads=False)),
+           xgo.shape[1], kind="decoder_backward_go")
+    same(f"{pre}decoder_backward_go@rays", k2[:2],
+         fc.decoder_backward(xgo, g, emb, dec, 8, 5, weight_grads=False)[:2])
     torch.cuda.synchronize()
-    return rows
 
 
 def kernel_digests():
-    """Print a SHA-256 of K2's and K3's outputs at the BA shape (uniform
-    and ray-ordered points) and of K2's without weight gradients at the GO
-    shape. The embed comes from the plain forward and the cotangents from a
-    seeded generator, so no other kernel shapes the inputs: two trees of
-    the port whose K2 and K3 are the same print the same lines."""
+    """Print a SHA-256 of K2's and K3's outputs at the flagship's BA shape
+    (uniform and ray-ordered points) and of K2's without weight gradients
+    at the GO shape, then of K1's (full, with the embed) and K4's on the
+    same inputs. The embed comes from the plain forward and the
+    cotangents from a seeded generator, so no other kernel shapes the
+    inputs: two trees of the port whose kernels are the same print the
+    same digests."""
     import hashlib
     import torch
     from mipsfusion_tpu_torch.ops import field_cuda as fc
@@ -634,25 +765,36 @@ def kernel_digests():
         k2 = fc.decoder_backward(xx, g, emb, dec, 8, 5,
                                  weight_grads=label != "go")
         k3 = tc.plane_backward(xx, d_embed, planes, 2)
+        k1 = fc.field_forward(xx, planes, dec, 2, 8, 5, return_embed=True)
+        k4 = tc.x_backward(xx, d_embed, planes, 2)
         print(f"digest {label}: inputs {sha((xx, emb, g, d_embed))} "
               f"decoder_backward {sha([t for t in k2 if t is not None])} "
-              f"plane_backward {sha(k3)}")
+              f"plane_backward {sha(k3)} field_forward {sha(k1)} "
+              f"x_backward {sha(k4)}")
 
 
 def phase_autograd():
-    """FieldQueryT gradients (kernels) vs the same Function on the plain
-    path, on interior points (where the composite autodiff path and the
-    kernels' coordinate gradient agree)."""
+    """At every shape of the table: FieldQueryT gradients (kernels) vs the
+    same Function on the plain path, on interior points (where the
+    composite autodiff path and the kernels' coordinate gradient agree),
+    and TriplaneEncode's."""
+    for name in KERNEL_SHAPES:
+        autograd_shape(name)
+
+
+def autograd_shape(shape_name: str):
     import torch
     from mipsfusion_tpu_torch.ops import field_cuda as fc
     dev = torch.device("cuda")
-    p = flagship_params(5, dev)
+    p = field_params(shape_name, 5, dev)
+    ns = len([k for k in p["planes"] if k.startswith("s")])
+    pre = "" if shape_name == "flag" else f" {shape_name}"
     x = test_points(60_000, 6, dev, inside_only=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     G = torch.randn((10, x.shape[1]), generator=gen, device=dev) * 0.1
     G, _ = kink_free(G, x, fc.field_forward(
-        x, p["planes"], p["decoder"], 2, 8, 5, return_embed=True)[1],
+        x, p["planes"], p["decoder"], ns, 8, 5, return_embed=True)[1],
         p["decoder"])
 
     def grads(run_plain: bool):
@@ -665,9 +807,9 @@ def phase_autograd():
         if run_plain:
             # composite autodiff of the plain forward
             out = fc.field_forward_plain(
-                xx, leaves["planes"], leaves["decoder"], 2, 8, 5)
+                xx, leaves["planes"], leaves["decoder"], ns, 8, 5)
         else:
-            out = fc.field_query_T(leaves, xx, 2, 8, 5)
+            out = fc.field_query_T(leaves, xx, ns, 8, 5)
         (out * G).sum().backward()
         flat = [t.grad for t in leaves["planes"].values()]
         flat += [t.grad for d in leaves["decoder"].values()
@@ -678,33 +820,34 @@ def phase_autograd():
     gp, xp = grads(True)
     worst = max(_err(a, b)[1] for a, b in zip(gk, gp))
     wx = _err(xk, xp)[1]
-    print(f"autograd: params max_rel={worst:.3e} x max_rel={wx:.3e} "
+    print(f"autograd{pre}: params max_rel={worst:.3e} x max_rel={wx:.3e} "
           f"tol_rel=1e-4")
     if not (worst <= 1e-4 and wx <= 1e-4):
-        _fail("FieldQueryT gradients disagree with the plain path")
+        _fail(f"FieldQueryT gradients disagree with the plain path{pre}")
 
     # TriplaneEncode (K0 forward, K3 + K4 backward) against autograd of
     # the plain composite encode
     from mipsfusion_tpu_torch.ops import triplane_cuda as tc
     xe = x.T.contiguous()
-    Ge = torch.randn((xe.shape[0], 48), generator=gen, device=dev) * 0.1
+    E = 4 * ns + p["planes"]["cp"].shape[-1]
+    Ge = torch.randn((xe.shape[0], E), generator=gen, device=dev) * 0.1
 
     def enc_grads(run_plain: bool):
         planes = {k: v.detach().clone().requires_grad_(True)
                   for k, v in p["planes"].items()}
         xx = xe.clone().requires_grad_(True)
         fn = tc.encode_forward_plain if run_plain else tc.triplane_encode
-        (fn(planes, xx, 2) * Ge).sum().backward()
-        return [planes[k].grad for k in ("s0", "s1", "cp")], xx.grad
+        (fn(planes, xx, ns) * Ge).sum().backward()
+        return [planes[k].grad for k in sorted(planes)], xx.grad
 
     gk, xk = enc_grads(False)
     gp, xp = enc_grads(True)
     worst = max(_err(a, b)[1] for a, b in zip(gk, gp))
     wx = _err(xk, xp)[1]
-    print(f"autograd TriplaneEncode: planes max_rel={worst:.3e} "
+    print(f"autograd TriplaneEncode{pre}: planes max_rel={worst:.3e} "
           f"x max_rel={wx:.3e} tol_rel=1e-4")
     if not (worst <= 1e-4 and wx <= 1e-4):
-        _fail("TriplaneEncode gradients disagree with the plain path")
+        _fail(f"TriplaneEncode gradients disagree with the plain path{pre}")
 
 
 # the kernels every SLAM path launches (K0 has no caller on the SLAM path,
@@ -948,6 +1091,99 @@ def phase_cli(n_frames: int = 30, ckpt_at: int = 15):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The CP profile's joint mesh: what it must hold. Its vertices inside the
+# room measured 11.21 mm (the flagship shape's on orbit_fast.yaml 6.91),
+# NVIDIA H100 80GB HBM3 at 700 W; the whole mesh's accuracy (76 mm) is set
+# by shells behind the walls and misses the 0.05 m of the outback's mesh.
+CP_INSIDE_ACCURACY = 0.015
+CP_MESH_COMPLETION = 0.85
+
+
+def phase_cp_profile():
+    """The CP-accelerated fast profile as a user runs it: the port's
+    load_config on configs/synthetic/orbit_fast_cp.yaml (orbit_fast.yaml's
+    budgets: RO 4 x 1024 particles x 12 x 16 px, GO 8 x 512 rays x 39
+    samples, BA 15 x (1024 + 400) rays x 39, first fit 500 iterations; the
+    manager as the config leaves it) and MIPSFusionTorch(cfg, dataset=
+    SyntheticDataset(cfg)).run() on the card, all 200 frames at span 1.0,
+    with K1-K4 at the shape [32, 64, 128] x F4 + CP 512 x 32; then the
+    joint mesh at mesh.voxel_final, scored against the scene's analytic
+    SDF. Fails unless the ATE is under the orbit's 0.02 m, the mesh's
+    completion@5cm over CP_MESH_COMPLETION and the accuracy of its
+    vertices inside the room under CP_INSIDE_ACCURACY. The whole mesh's
+    accuracy is printed beside the 0.05 m it misses: shells the fields
+    leave 0.2-0.4 m behind the walls, inside the keyframes' frustums, pass
+    the mesher's filters (ROADMAP C). Returns the run's and the mesher's
+    launch counts."""
+    import torch
+    from mipsfusion_tpu_torch.config import load_config
+    from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
+    from mipsfusion_tpu_torch.eval.recon import (evaluate_synthetic_mesh,
+                                                 mesh_error_split)
+    from mipsfusion_tpu_torch.ops import _build
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
+    cwd = os.getcwd()
+    os.chdir(os.path.dirname(os.path.abspath(__file__)))
+    try:                                     # inherit_from: from the root
+        cfg = load_config("configs/synthetic/orbit_fast_cp.yaml")
+    finally:
+        os.chdir(cwd)
+    cfg["data"]["output"] = None
+    slam = MIPSFusionTorch(cfg, dataset=SyntheticDataset(
+        cfg, n_frames=200, span=1.0))
+    shape = _build.kernel_shape(slam.field.params(detach=True)["planes"],
+                                slam.fcfg.n_scales)
+    if shape.name != "cp":
+        _fail(f"cp profile: the field's shape is {shape.name}, not cp")
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, wall = _run_path(slam)
+    ate = res["absolute_translational_error.rmse"]
+    print(f"cp profile: 200 frames  shape {shape.name} (embed "
+          f"{shape.embed_dim})  ATE RMSE {ate * 1000:.2f} mm  tracked FPS "
+          f"{res['fps']:.2f}  wall {wall:.1f} s  submaps {res['n_submaps']}"
+          f"  peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"cp profile launches {counts}  stage calls "
+          f"{dict(slam.stage_calls)}")
+    print("cp profile stage ms (CUDA events, mean per call): " + json.dumps(
+        {k: round(v, 3) for k, v in slam.stage_ms().items()}))
+    if not ate < 0.02:
+        _fail(f"cp profile ATE {ate:.4f} m >= 0.02 m")
+    voxel = cfg["mesh"]["voxel_final"]
+    fc.reset_launch_counts()
+    t0 = time.time()
+    verts, faces, colors = slam.extract_mesh(voxel_size=voxel)
+    torch.cuda.synchronize()
+    mesh_wall = time.time() - t0
+    mesh_counts = fc.launch_counts()
+    if not (len(verts) and len(faces) and np.isfinite(verts).all()
+            and np.isfinite(colors).all()):
+        _fail("cp profile mesh: empty or non-finite")
+    if mesh_counts["field_forward"] <= 0:
+        _fail(f"cp profile mesh launches {mesh_counts}: no K1")
+    m = evaluate_synthetic_mesh(slam, verts=verts)
+    e = mesh_error_split(verts, slam.dataset.room_half.cpu())
+    print(f"cp profile mesh: {res['n_submaps']} submap(s)  voxel {voxel}  "
+          f"{len(verts)} vertices {len(faces)} faces  wall {mesh_wall:.2f} s"
+          f"  launches {mesh_counts}")
+    print(f"cp profile mesh error: accuracy {m['mesh_accuracy_m'] * 1000:.2f}"
+          f" mm (0.05 m not held)  completion@5cm "
+          f"{m['mesh_completion@5cm']:.4f} (limit {CP_MESH_COMPLETION})  "
+          f"vertices outside the room {e['outside_share']:.4f}, accuracy of "
+          f"those inside {e['inside_accuracy_m'] * 1000:.2f} mm (limit "
+          f"{CP_INSIDE_ACCURACY * 1000:.0f}); vertices beyond 5 cm "
+          f"{e['far_share']:.4f} at mean |SDF| "
+          f"{e['far_mean_m'] * 1000:.1f} mm")
+    if not m["mesh_completion@5cm"] > CP_MESH_COMPLETION:
+        _fail(f"cp profile mesh completion@5cm "
+              f"{m['mesh_completion@5cm']:.4f} <= {CP_MESH_COMPLETION}")
+    if not e["inside_accuracy_m"] < CP_INSIDE_ACCURACY:
+        _fail(f"cp profile mesh: accuracy inside the room "
+              f"{e['inside_accuracy_m']:.4f} m >= {CP_INSIDE_ACCURACY} m")
+    return counts, mesh_counts
+
+
 def switch_ba_alone(slam, ds):
     """Switch BA again on the last switch-back frame, after the run: the
     field is frozen, so K1, K2 and K4 launch and K3 (plane gradients) must
@@ -1148,12 +1384,15 @@ def main(argv=None):
     orbit_counts = phase_slam()
     by_seed, counts, mesh_counts = phase_outbacks()
     phase_cli()
+    cp_counts, cp_mesh_counts = phase_cp_profile()
     # K0 has no SLAM caller (as triplane_encode_pallas has none in the JAX
     # package): no loop may launch it
-    k0_loops = [orbit_counts["encode_forward"]] + [
+    k0_loops = [orbit_counts["encode_forward"],
+                cp_counts["encode_forward"]] + [
         c["encode_forward"] for c in by_seed.values()]
     if any(k0_loops):
-        _fail(f"K0 launched by a SLAM loop (orbit, outbacks): {k0_loops}")
+        _fail(f"K0 launched by a SLAM loop (orbit, cp profile, outbacks): "
+              f"{k0_loops}")
     kernels = []
     for name, r in rows.items():
         on_path = name in SLAM_KERNELS
@@ -1169,11 +1408,15 @@ def main(argv=None):
             "launches_orbit": orbit_counts[name],
             # the mesher's launches on the main path's run
             "launches_mesh": mesh_counts[name],
+            # the CP profile's run (kernels at the cp shape) and its mesh
+            "launches_cp_profile": cp_counts[name],
+            "launches_cp_profile_mesh": cp_mesh_counts[name],
             "slam_caller": on_path,
             "max_abs_err": r["max_abs_err"],
             # "ms", "plain_ms" and the bound at the first shape measured
-            # (the BA batch, 195,000 uniform points); every shape's
-            # numbers ride beside them
+            # (the flagship's BA batch, 195,000 uniform points); every
+            # label's numbers ride beside them, the cp and fcl shapes'
+            # under "cp:" and "fcl:" labels
             "ms": next(iter(r["ms"].values())),
             "ms_idle_launch": next(iter(r["ms_idle_launch"].values())),
             "plain_ms": next(iter(r["plain_ms"].values())),
@@ -1184,7 +1427,8 @@ def main(argv=None):
             "ms_by_shape": r["ms"],
             "ms_idle_launch_by_shape": r["ms_idle_launch"],
             "plain_ms_by_shape": r["plain_ms"],
-            "bound_ms_by_shape": r["bound_ms"]})
+            "bound_ms_by_shape": r["bound_ms"],
+            "bound_by_shape": r["bound_by"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Field parameters between the JAX package's tree and the port's Field.
 
-The JAX tree is ``{"planes": {"s0": [3, 32, 32, 4], "s1": [3, 64, 64, 4],
-"cp": [3, 384, 40]}, "decoder": {layer: {"w": [in, out], "b": [out]}}}``
-(numpy leaves); the port keeps the same layout, so conversion copies
-leaves and checks the structure.
+The JAX tree is ``{"planes": {"s0": [3, R0, R0, F], "s1": .., "cp": [3,
+Rcp, C]}, "decoder": {layer: {"w": [in, out], "b": [out]}}}`` with one
+``s<i>`` per plane scale (the flagship's [32, 64] x F4 + CP 384 x 40; a
+third scale ``s2`` in the CP profile and the FastCaMo-large family),
+numpy leaves; the port keeps the same layout, so conversion copies every
+leaf it finds and checks the structure.
 """
 
 from __future__ import annotations

@@ -1,14 +1,19 @@
-// Shared definitions of the field kernels (flagship widths, taps, encode).
+// Shared definitions of the field kernels (shapes, taps, encode).
 //
-// The kernels are specialised to the flagship field of configs/base.yaml:
-// Triplane [32, 64] x F4 + CP 384 x 40 (embed 48), 8-band PE (51 inputs
-// with raw xyz), decoder 128 / 64+64 / 128 / 5 classes. The Python
-// wrappers raise on any other width; the plain PyTorch versions take any.
+// The kernels are templates over a compile-time field shape (FieldShape:
+// NS plane scales of F = 4 features, a CP term of RCP lines x CCP
+// channels). shape.cu is compiled once per shape of the table in
+// ops/_build.py, with that shape's -D flags; it instantiates every
+// kernel for it and defines the C entry points with the shape's name as
+// suffix. What no config changes stays fixed: 8-band PE (51 inputs with
+// raw xyz), decoder 128 / 64+64 / 128 / 5 classes. The Python wrappers
+// raise on any shape outside the table; the plain PyTorch versions take
+// any.
 //
 // Layouts are the plain parameter layouts of mipsfusion_tpu_torch (the
-// same as the JAX tree): plane s [3, R, R, 4], CP [3, 384, 40], decoder
+// same as the JAX tree): plane s [3, R, R, 4], CP [3, RCP, CCP], decoder
 // w [in, out] row-major, b [out]. Point-indexed arrays are points-minor:
-// x [3, N], embed [48, N], out [10, N].
+// x [3, N], embed [E, N], out [10, N].
 //
 // Precision: float32 storage and float32 accuracy throughout (K1's and K2's
 // tensor-core products split each operand into two TF32 parts, tf32.cuh).
@@ -19,12 +24,7 @@
 
 namespace mf {
 
-constexpr int R0 = 32;
-constexpr int R1 = 64;
 constexpr int FEAT = 4;
-constexpr int RCP = 384;
-constexpr int CCP = 40;
-constexpr int EMB = 2 * FEAT + CCP;       // 48
 constexpr int NFREQ = 8;
 constexpr int PE = 3 + 3 * NFREQ * 2;     // 51
 constexpr int HID = 128;                  // trunk hidden
@@ -34,6 +34,33 @@ constexpr int HBR = 128;                  // sdf branch hidden
 constexpr int NCLS = 5;
 constexpr int OUT_ROWS = 5 + NCLS;        // rgb 3, sdf, entropy, prob 5
 
+// A field shape: NS = 2 or 3 plane scales of resolutions R0, R1 (, R2),
+// and CP lines of RCP rows x CCP channels. The embed is [scale 0 | ..
+// | CP], E = NS * 4 + CCP rows, read in "parts" of 4 rows: one per scale,
+// then one per group of 4 CP channels.
+template <int NS_, int R0_, int R1_, int R2_, int RCP_, int CCP_>
+struct FieldShape {
+  static constexpr int NS = NS_;
+  static constexpr int R0 = R0_, R1 = R1_, R2 = R2_;
+  static constexpr int RCP = RCP_, CCP = CCP_;
+  static constexpr int NCPG = CCP / 4;              // CP groups of 4
+  static constexpr int EMB = NS * FEAT + CCP;       // embed rows E
+  static constexpr int EMB_PAD = (EMB + 7) / 8 * 8; // E padded to 8
+  static constexpr int NPART = NS + NCPG;           // 4-row parts
+  static constexpr int PLANES = 3 * FEAT * (R0 * R0 + R1 * R1
+                                            + (NS > 2 ? R2 * R2 : 0));
+  static constexpr int CP_SIZE = 3 * RCP * CCP;
+  static_assert(NS == 2 || NS == 3, "2 or 3 plane scales");
+  static_assert(CCP % 4 == 0 && NCPG <= 10, "CP groups of 4, at most 10");
+  static_assert(NS == 3 || R2 == 0, "R2 is unused with 2 scales");
+};
+
+// The pointers of one field's encoding tables (s[2] null with 2 scales).
+struct Planes {
+  const float* s[3];
+  const float* cp;
+};
+
 struct Tap {
   int i0, i1;      // lower row and upper row (upper clamped to R-1)
   float w;         // weight of the upper row (1-w on the lower)
@@ -42,8 +69,8 @@ struct Tap {
 
 // Reference _coords (triplane_pallas.py:157): clip(u*(R-1), 0, R-1-1e-6)
 // in float32. The bound is formed in double and rounded once, as numpy
-// does; for R = 64 and 384 it rounds to exactly R-1, so i0 can be R-1 and
-// the upper tap (weight 0) must not read row R.
+// does; for R = 64, 128, 384 and 512 it rounds to exactly R-1, so i0 can be
+// R-1 and the upper tap (weight 0) must not read row R.
 template <int R>
 __device__ __forceinline__ Tap make_tap(float u) {
   const float hi = (float)((double)(R - 1) - 1e-6);
@@ -97,8 +124,10 @@ __device__ __forceinline__ float4 scale_lookup(const float* S, const float x[3])
 }
 
 // Product of the three CP line lookups for channels c..c+3.
+template <class Sh>
 __device__ __forceinline__ float4 cp_lookup4(const float* cp, const float x[3],
                                              int c) {
+  constexpr int RCP = Sh::RCP, CCP = Sh::CCP;
   float4 prod = make_float4(1.f, 1.f, 1.f, 1.f);
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -112,6 +141,20 @@ __device__ __forceinline__ float4 cp_lookup4(const float* cp, const float x[3],
     prod.w *= (1.0f - t.w) * lo.w + t.w * hi.w;
   }
   return prod;
+}
+
+// Part `part` of a point's embed (4 rows): a scale's three plane lookups
+// for part < NS, then CP group part - NS; zeros past the last part.
+template <class Sh>
+__device__ __forceinline__ float4 embed_part(const Planes& P, const float x[3],
+                                             int part) {
+  if (part == 0) return scale_lookup<Sh::R0>(P.s[0], x);
+  if (part == 1) return scale_lookup<Sh::R1>(P.s[1], x);
+  if constexpr (Sh::NS > 2) {
+    if (part == 2) return scale_lookup<Sh::R2>(P.s[2], x);
+  }
+  if (part < Sh::NPART) return cp_lookup4<Sh>(P.cp, x, 4 * (part - Sh::NS));
+  return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 // PE frequency 2^j * pi in float32 (reference: float32(2^j) * float32(pi)).
@@ -156,3 +199,10 @@ static inline DecoderW make_dw(const float* w0, const float* b0,
 }
 
 }  // namespace mf
+
+// The decoder's parameters as the C entry points take them: w, b per layer
+// (trunk0, trunk1, rgb, sdf0, sdf1).
+#define MF_DECODER_ARGS                                                       \
+  const float *w0, const float *b0, const float *w1, const float *b1,        \
+      const float *wr, const float *br, const float *ws0, const float *bs0,  \
+      const float *ws1, const float *bs1

@@ -1,31 +1,40 @@
-// K2: decoder backward. (K1, the fused field forward whose saved embed K2
-// reads, is in field_forward.cu; the 3xTF32 split both use is in tf32.cuh.)
+// K2: decoder backward, a template over the field shape (common.cuh
+// FieldShape), instantiated once per shape by shape.cu. (K1, the fused
+// field forward whose saved embed K2 reads, is in field_forward.cuh; the
+// 3xTF32 split both use is in tf32.cuh.)
 //
 // K2 replaces mipsfusion_tpu/ops/field_pallas.py _decoder_bwd_call
 // (_make_decoder_bwd_kernel). A point needs ~115k MACs (forward recompute
-// 38k, data backward 38k, weight gradients 39k) against ~0.45 KB of I/O,
+// 38k, data backward 38k, weight gradients 39k; at the flagship's E = 48)
+// against ~0.45 KB of I/O,
 // so on this card it is bound by arithmetic. Every decoder product runs on the tensor cores as
 // mma.sync.m16n8k8 TF32 with the 3xTF32 split (a = hi + lo, a b ~ a_lo b_hi
 // + a_hi b_lo + a_hi b_hi, float32 accumulation), which keeps float32
 // accuracy; single TF32 (~3 digits) would not hold the 1e-4 tolerance.
-// Widths are padded to multiples of 8 (PE 51 -> 56, rgb input 115 -> 120).
-// One persistent block per SM (512 threads, a 145 KB tile of 64 points x
-// 504 rows) walks the point tiles: forward recompute from x and the saved
+// Widths are padded to multiples of 8 (PE 51 -> 56, rgb input 115 -> 120,
+// the embed E 44 -> 48 and 52 -> 56 with zero rows, as the TPU kernel's
+// _round8). One persistent block per SM (512 threads, a tile of 64 points
+// x 456 + E_pad rows: 145 KB at the flagship, 147 KB at E 52) walks the
+// point tiles: forward recompute from x and the saved
 // embed, softmax-head backward, then the backward sweep, overwriting each
 // activation with its gradient in place. The weight gradients dW = sum_n
 // a_n d_n^T are taken per tile on the tensor cores as soon as a layer's
 // gradient exists and added into the block's own partial (plain read-add-
-// write of a [38625] slice in device memory that only this block touches);
+// write of a [38625] slice at the flagship in device memory that only this
+// block touches);
 // a fixed-order sum of the per-block partials follows, so the result is
 // deterministic. No per-point workspace goes through device memory. The
 // PE chain of d_x, the softmax head and the bias sums stay on the CUDA
 // cores in float32. Weight gradients come back in the plain parameter
-// layout ([in, out] then the bias row).
+// layout ([in, out] then the bias row), with the real E: padded rows
+// never reach them.
 
+#pragma once
 #include "common.cuh"
 #include "tf32.cuh"
 
 namespace mf {
+namespace {                                  // one copy per shape's object
 
 // Point coordinate d of tile column p (padding columns read 0.5).
 __device__ __forceinline__ float tile_x(const float* __restrict__ x, int N,
@@ -82,38 +91,53 @@ constexpr int K2_BP = 64;                    // points per tile
 constexpr int K2_LD = K2_BP + 8;             // row stride, = 8 mod 32 banks
 constexpr int K2_NT = 512;
 constexpr int K2_WARPS = K2_NT / 32;
-// tile rows [row][K2_LD], one column per point; the sdf-branch input
-// (rows 0..111) and the rgb-branch input (rows 112..226) are contiguous
-constexpr int T_H1S = 0;                     // h1 sdf 64   -> d h1 sdf
-constexpr int T_EMB = NSDF;                  // embed 48    -> d embed
-constexpr int T_H1R = NSDF + EMB;            // h1 rgb 64   -> d h1 rgb
-constexpr int T_PE = T_H1R + NRGB;           // pe 51 + 5 zero rows -> d pe
 constexpr int PE_PAD = 56;
-constexpr int T_H0 = T_PE + PE_PAD;          // h0 128      -> d h0
-constexpr int T_H2 = T_H0 + HID;             // h2 128      -> d h2
-constexpr int T_LOG = T_H2 + HBR;            // logits 5 -> d logits (8 rows)
-constexpr int T_G = T_LOG + 8;               // rgb cotangent 3 (8 rows)
-constexpr int K2_ROWS = T_G + 8;             // 504
-constexpr int K2_SMEM = K2_ROWS * K2_LD * 4; // 145,152 B: one block per SM
-// flat gradient: per layer the [in + 1, out] block (w rows, bias row)
-constexpr int OFF_W0 = 0;
-constexpr int OFF_W1 = OFF_W0 + (PE + 1) * HID;
-constexpr int OFF_WR = OFF_W1 + (HID + 1) * (NSDF + NRGB);
-constexpr int OFF_WS0 = OFF_WR + (NRGB + PE + 1) * 3;
-constexpr int OFF_WS1 = OFF_WS0 + (NSDF + EMB + 1) * HBR;
-constexpr int GRAD_SIZE = OFF_WS1 + (HBR + 1) * NCLS;   // 38,625
-static_assert(GRAD_SIZE == 38625, "flat gradient size");
 
-// transposed weight copies: Ws0^T [128][112], W1^T [128][128],
-// W0^T [128][56] (PE rows padded to 56, zeros)
-constexpr int WT_S0 = 0;
-constexpr int WT_1 = WT_S0 + HBR * (NSDF + EMB);
-constexpr int WT_0 = WT_1 + (NSDF + NRGB) * HID;
-constexpr int WT_SIZE = WT_0 + HID * PE_PAD;
+// The tile rows and the flat gradient at shape Sh (E = Sh::EMB real embed
+// rows, EP = Sh::EMB_PAD tile rows).
+template <class Sh>
+struct K2Layout {
+  static constexpr int E = Sh::EMB, EP = Sh::EMB_PAD;
+  // tile rows [row][K2_LD], one column per point; the sdf-branch input
+  // (rows 0..63+EP) and the rgb-branch input (64+EP.. +115) are contiguous
+  static constexpr int T_H1S = 0;            // h1 sdf 64  -> d h1 sdf
+  static constexpr int T_EMB = NSDF;         // embed E + zero rows to EP
+  static constexpr int T_H1R = NSDF + EP;    // h1 rgb 64  -> d h1 rgb
+  static constexpr int T_PE = T_H1R + NRGB;  // pe 51 + 5 zero rows -> d pe
+  static constexpr int T_H0 = T_PE + PE_PAD; // h0 128     -> d h0
+  static constexpr int T_H2 = T_H0 + HID;    // h2 128     -> d h2
+  static constexpr int T_LOG = T_H2 + HBR;   // logits 5 -> d logits (8 rows)
+  static constexpr int T_G = T_LOG + 8;      // rgb cotangent 3 (8 rows)
+  static constexpr int ROWS = T_G + 8;       // 504 at EP 48, 512 at 56
+  static constexpr int SMEM = ROWS * K2_LD * 4;   // one block per SM
+  static_assert(SMEM <= 232448, "K2 tile");
+  // the sdf-branch input as rows of a weight-gradient product: 16-row
+  // blocks (past 64 + E they read the next finite rows, whose products are
+  // dropped)
+  static constexpr int S_IN_M = (NSDF + E + 15) / 16 * 16;
+  // flat gradient: per layer the [in + 1, out] block (w rows, bias row)
+  static constexpr int OFF_W0 = 0;
+  static constexpr int OFF_W1 = OFF_W0 + (PE + 1) * HID;
+  static constexpr int OFF_WR = OFF_W1 + (HID + 1) * (NSDF + NRGB);
+  static constexpr int OFF_WS0 = OFF_WR + (NRGB + PE + 1) * 3;
+  static constexpr int OFF_WS1 = OFF_WS0 + (NSDF + E + 1) * HBR;
+  static constexpr int GRAD_SIZE = OFF_WS1 + (HBR + 1) * NCLS;
+  // transposed weight copies: Ws0^T [128][64 + E], W1^T [128][128],
+  // W0^T [128][56] (PE rows padded to 56, zeros)
+  static constexpr int WT_S0 = 0;
+  static constexpr int WT_1 = WT_S0 + HBR * (NSDF + E);
+  static constexpr int WT_0 = WT_1 + (NSDF + NRGB) * HID;
+  static constexpr int WT_SIZE = WT_0 + HID * PE_PAD;
+};
 
+template <class Sh>
 __global__ void transpose_weights_kernel(DecoderW dw, float* __restrict__ wt) {
+  using K = K2Layout<Sh>;
+  constexpr int WT_S0 = K::WT_S0, WT_1 = K::WT_1, WT_0 = K::WT_0;
+  constexpr int EMB = Sh::EMB;
+  static_assert(HBR * (NSDF + EMB) <= HID * HID, "one grid covers Ws0");
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < HBR * (NSDF + EMB)) {              // Ws0 [112][128] -> [128][112]
+  if (i < HBR * (NSDF + EMB)) {              // Ws0 [64+E][128] -> [128][64+E]
     const int j = i / (NSDF + EMB), k = i % (NSDF + EMB);
     wt[WT_S0 + i] = dw.ws0[k * HBR + j];
   }
@@ -137,8 +161,9 @@ struct RowMap {
 __device__ __forceinline__ RowMap rows_at(int base) {
   return RowMap{base, 1 << 30, 0};
 }
+template <class Sh>
 __device__ __forceinline__ RowMap h1_rows() {   // h1 / d h1: sdf | rgb
-  return RowMap{T_H1S, NSDF, T_H1R};
+  return RowMap{K2Layout<Sh>::T_H1S, NSDF, K2Layout<Sh>::T_H1R};
 }
 
 // out[p][n] = sum_k A[k][p] B[k][n] for the tile's 64 points, on the tensor
@@ -255,8 +280,15 @@ __device__ __forceinline__ void bias_sum(const float* T, RowMap dm, int Nv,
 
 // The weight gradients of one backward phase from the tile's rows:
 // 0 sdf1 and rgb (and their biases), 1 sdf0, 2 trunk1, 3 trunk0.
-template <int PH>
+template <class Sh, int PH>
 __device__ __forceinline__ void wgrad_phase(const float* T, float* part) {
+  using K = K2Layout<Sh>;
+  constexpr int EMB = Sh::EMB;
+  constexpr int T_H1R = K::T_H1R, T_PE = K::T_PE, T_H0 = K::T_H0,
+                T_H2 = K::T_H2, T_LOG = K::T_LOG, T_G = K::T_G,
+                T_H1S = K::T_H1S;
+  constexpr int OFF_W0 = K::OFF_W0, OFF_W1 = K::OFF_W1, OFF_WR = K::OFF_WR,
+                OFF_WS0 = K::OFF_WS0, OFF_WS1 = K::OFF_WS1;
   if (PH == 0) {
     prod_wgrad<HBR, 8>(T, rows_at(T_H2), HBR, rows_at(T_LOG), NCLS,
                        part + OFF_WS1);
@@ -265,13 +297,14 @@ __device__ __forceinline__ void wgrad_phase(const float* T, float* part) {
     bias_sum(T, rows_at(T_LOG), NCLS, part + OFF_WS1 + HBR * NCLS);
     bias_sum(T, rows_at(T_G), 3, part + OFF_WR + (NRGB + PE) * 3);
   } else if (PH == 1) {
-    prod_wgrad<NSDF + EMB, HBR>(T, rows_at(T_H1S), NSDF + EMB,
-                                rows_at(T_H2), HBR, part + OFF_WS0);
+    prod_wgrad<K::S_IN_M, HBR>(T, rows_at(T_H1S), NSDF + EMB,
+                               rows_at(T_H2), HBR, part + OFF_WS0);
     bias_sum(T, rows_at(T_H2), HBR, part + OFF_WS0 + (NSDF + EMB) * HBR);
   } else if (PH == 2) {
-    prod_wgrad<HID, NSDF + NRGB>(T, rows_at(T_H0), HID, h1_rows(),
+    prod_wgrad<HID, NSDF + NRGB>(T, rows_at(T_H0), HID, h1_rows<Sh>(),
                                  NSDF + NRGB, part + OFF_W1);
-    bias_sum(T, h1_rows(), NSDF + NRGB, part + OFF_W1 + HID * (NSDF + NRGB));
+    bias_sum(T, h1_rows<Sh>(), NSDF + NRGB,
+             part + OFF_W1 + HID * (NSDF + NRGB));
   } else {
     prod_wgrad<64, HID>(T, rows_at(T_PE), PE, rows_at(T_H0), HID,
                         part + OFF_W0);
@@ -281,23 +314,24 @@ __device__ __forceinline__ void wgrad_phase(const float* T, float* part) {
 
 // The tile's weight-gradient phase PH, when weight gradients are asked
 // for (the barrier orders it before the products that overwrite its rows).
-template <bool WG, int PH>
+template <class Sh, bool WG, int PH>
 __device__ __forceinline__ void wgrad_step(const float* T, float* part) {
   if (WG) {
-    wgrad_phase<PH>(T, part);
+    wgrad_phase<Sh, PH>(T, part);
     __syncthreads();
   }
 }
 
-// K2 per-point pass. A persistent block (one per SM, 145 KB of tile) walks
+// K2 per-point pass. A persistent block (one per SM, 145-147 KB of tile) walks
 // 64-point tiles: forward recompute from x and the saved embed, then the
 // backward sweep, every decoder product on the tensor cores (3xTF32),
 // each activation overwritten in place by its gradient once the products
 // that read it are done. WG adds, right after each layer's gradients
 // exist, that layer's dW over the tile into the block's partial
-// ([gridDim.x, 38625], zeroed by the caller, summed by sum_partials_kernel);
-// without WG (GO: pose gradients only) it computes d_x and d_embed alone.
-template <bool WG>
+// ([gridDim.x, GRAD_SIZE], zeroed by the caller, summed by
+// sum_partials_kernel); without WG (GO: pose gradients only) it computes
+// d_x and d_embed alone.
+template <class Sh, bool WG>
 __global__ void __launch_bounds__(K2_NT, 1)
     decoder_bwd_kernel(const float* __restrict__ x,
                        const float* __restrict__ g,
@@ -305,18 +339,26 @@ __global__ void __launch_bounds__(K2_NT, 1)
                        const float* __restrict__ wt,
                        float* __restrict__ partials,
                        float* __restrict__ d_x, float* __restrict__ d_embed) {
+  using K = K2Layout<Sh>;
+  constexpr int EMB = Sh::EMB, EP = Sh::EMB_PAD;
+  constexpr int T_H1S = K::T_H1S, T_EMB = K::T_EMB, T_H1R = K::T_H1R,
+                T_PE = K::T_PE, T_H0 = K::T_H0, T_H2 = K::T_H2,
+                T_LOG = K::T_LOG, T_G = K::T_G;
+  constexpr int WT_S0 = K::WT_S0, WT_1 = K::WT_1, WT_0 = K::WT_0;
   extern __shared__ float4 sm4[];
   float* T = reinterpret_cast<float*>(sm4);
   constexpr int BP = K2_BP, NT = K2_NT, LD = K2_LD;
   const size_t S = N;
   const int n_tiles = (N + BP - 1) / BP;
-  float* part = partials + (size_t)blockIdx.x * GRAD_SIZE;
+  float* part = partials + (size_t)blockIdx.x * K::GRAD_SIZE;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int n0 = tile * BP, nv = min(BP, N - n0);
-    // ---- inputs: embed, PE (+ zero pad rows), the rgb cotangent ----
-    for (int it = threadIdx.x; it < EMB * BP; it += NT) {
+    // ---- inputs: embed (+ zero pad rows), PE (+ zero pad rows), the rgb
+    // cotangent ----
+    for (int it = threadIdx.x; it < EP * BP; it += NT) {
       const int e = it / BP, p = it % BP;
-      T[(T_EMB + e) * LD + p] = p < nv ? embed[e * S + n0 + p] : 0.f;
+      T[(T_EMB + e) * LD + p] =
+          (e < EMB && p < nv) ? embed[e * S + n0 + p] : 0.f;
     }
     tile_pe<BP, NT, LD>(x, N, n0, nv, T + T_PE * LD);
     // rows PE..55 of pe and the 8 logit rows zero, the 8 g rows g_rgb
@@ -342,10 +384,10 @@ __global__ void __launch_bounds__(K2_NT, 1)
     prod_points<HID, NSDF + NRGB, 4>(
         T, rows_at(T_H0), dw.w1, NSDF + NRGB, 1, HID, NSDF + NRGB,
         [&](int p, int n, float v) {
-          T[h1_rows()(n) * LD + p] = v + __ldg(dw.b1 + n);
+          T[h1_rows<Sh>()(n) * LD + p] = v + __ldg(dw.b1 + n);
         });
     __syncthreads();
-    prod_points<NSDF + EMB, HBR, 4>(
+    prod_points<NSDF + EP, HBR, 4>(
         T, rows_at(T_H1S), dw.ws0, HBR, 1, NSDF + EMB, HBR,
         [&](int p, int n, float v) {
           T[(T_H2 + n) * LD + p] = fmaxf(v + __ldg(dw.bs0 + n), 0.f);
@@ -381,7 +423,7 @@ __global__ void __launch_bounds__(K2_NT, 1)
         T[(T_LOG + c) * LD + p] = prob[c] * (gp[c] - dot);
     }
     __syncthreads();
-    wgrad_step<WG, 0>(T, part);         // sdf1, rgb
+    wgrad_step<Sh, WG, 0>(T, part);     // sdf1, rgb
     // d h2 = (Ws1 d logits) * (h2 > 0), in place of h2
     prod_points<8, HBR, 4>(
         T, rows_at(T_LOG), dw.ws1, 1, NCLS, NCLS, HBR,
@@ -394,9 +436,10 @@ __global__ void __launch_bounds__(K2_NT, 1)
         T, rows_at(T_G), dw.wr, 1, 3, 3, NRGB,
         [&](int p, int n, float v) { T[(T_H1R + n) * LD + p] = v; });
     __syncthreads();
-    wgrad_step<WG, 1>(T, part);         // sdf0
-    // d sdf_in = Ws0 d h2 -> d h1_sdf (rows 0..63), d embed (rows 64..111)
-    prod_points<HBR, NSDF + EMB, 4>(
+    wgrad_step<Sh, WG, 1>(T, part);     // sdf0
+    // d sdf_in = Ws0 d h2 -> d h1_sdf (rows 0..63), d embed (rows 64..63+E;
+    // the pad rows to 64+EP get 0)
+    prod_points<HBR, NSDF + EP, 4>(
         T, rows_at(T_H2), wt + WT_S0, NSDF + EMB, 1, HBR, NSDF + EMB,
         [&](int p, int n, float v) { T[(T_H1S + n) * LD + p] = v; });
     __syncthreads();
@@ -404,16 +447,16 @@ __global__ void __launch_bounds__(K2_NT, 1)
       const int e = it / BP, p = it % BP;
       if (p < nv) d_embed[e * S + n0 + p] = T[(T_EMB + e) * LD + p];
     }
-    wgrad_step<WG, 2>(T, part);         // trunk1
+    wgrad_step<Sh, WG, 2>(T, part);     // trunk1
     // d h0 = (W1 d h1) * (h0 > 0), in place of h0
     prod_points<NSDF + NRGB, HID, 4>(
-        T, h1_rows(), wt + WT_1, HID, 1, NSDF + NRGB, HID,
+        T, h1_rows<Sh>(), wt + WT_1, HID, 1, NSDF + NRGB, HID,
         [&](int p, int n, float v) {
           float* o = T + (T_H0 + n) * LD + p;
           *o = *o > 0.f ? v : 0.f;
         });
     __syncthreads();
-    wgrad_step<WG, 3>(T, part);         // trunk0
+    wgrad_step<Sh, WG, 3>(T, part);     // trunk0
     // d pe = W0 d h0 + Wr[64:] g_rgb, in place of pe (rows < 51)
     prod_points<HID, PE_PAD, 2>(
         T, rows_at(T_H0), wt + WT_0, PE_PAD, 1, HID, PE,
@@ -457,57 +500,71 @@ __global__ void sum_partials_kernel(const float* __restrict__ partials,
   out[i] = s;
 }
 
-}  // namespace mf
-
-using namespace mf;
-
-extern "C" int mf_decoder_wt_size() { return WT_SIZE; }
+// ---------------------------------------------------------- launches ----
 
 template <class Kern>
-static cudaError_t set_smem(Kern kern, int smem) {
+cudaError_t set_smem(Kern kern, int smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem);
 }
 
-// grads: flat [38625] = per layer (trunk0, trunk1, rgb, sdf0, sdf1) the
+// grads: flat [GRAD_SIZE] = per layer (trunk0, trunk1, rgb, sdf0, sdf1) the
 // [in+1, out] block of w rows followed by the bias row. partials:
-// [splits, 38625] zeros, one per block of the persistent grid (splits
+// [splits, GRAD_SIZE] zeros, one per block of the persistent grid (splits
 // blocks, one per SM). With weight_grads = 0 only d_x and d_embed are
 // computed (partials and grads are not touched).
-extern "C" int mf_decoder_backward(const float* x, const float* g,
-                                   const float* embed, int n,
-                                   const float* w0, const float* b0,
-                                   const float* w1, const float* b1,
-                                   const float* wr, const float* br,
-                                   const float* ws0, const float* bs0,
-                                   const float* ws1, const float* bs1,
-                                   float* wt, float* partials, int splits,
-                                   float* d_x, float* d_embed, float* grads,
-                                   int weight_grads, void* stream) {
-  DecoderW dw = make_dw(w0, b0, w1, b1, wr, br, ws0, bs0, ws1, bs1);
-  cudaStream_t st = (cudaStream_t)stream;
+template <class Sh>
+int decoder_backward(const float* x, const float* g, const float* embed,
+                     int n, DecoderW dw, float* wt, float* partials,
+                     int splits, float* d_x, float* d_embed, float* grads,
+                     int weight_grads, cudaStream_t st) {
+  using K = K2Layout<Sh>;
   if (n <= 0) return (int)cudaSuccess;
   static bool attr_set = false;
   cudaError_t e;
   if (!attr_set) {
-    if ((e = set_smem(decoder_bwd_kernel<false>, K2_SMEM)) != cudaSuccess ||
-        (e = set_smem(decoder_bwd_kernel<true>, K2_SMEM)) != cudaSuccess)
+    if ((e = set_smem(decoder_bwd_kernel<Sh, false>, K::SMEM)) !=
+            cudaSuccess ||
+        (e = set_smem(decoder_bwd_kernel<Sh, true>, K::SMEM)) != cudaSuccess)
       return (int)e;
     attr_set = true;
   }
-  transpose_weights_kernel<<<(HID * HID + 255) / 256, 256, 0, st>>>(dw, wt);
+  transpose_weights_kernel<Sh><<<(HID * HID + 255) / 256, 256, 0, st>>>(dw,
+                                                                        wt);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const int n_tiles = (n + K2_BP - 1) / K2_BP;
   const int grid = n_tiles < splits ? n_tiles : splits;
   if (!weight_grads) {
-    decoder_bwd_kernel<false><<<grid, K2_NT, K2_SMEM, st>>>(
+    decoder_bwd_kernel<Sh, false><<<grid, K2_NT, K::SMEM, st>>>(
         x, g, embed, n, dw, wt, partials, d_x, d_embed);
     return (int)cudaGetLastError();
   }
-  decoder_bwd_kernel<true><<<grid, K2_NT, K2_SMEM, st>>>(
+  decoder_bwd_kernel<Sh, true><<<grid, K2_NT, K::SMEM, st>>>(
       x, g, embed, n, dw, wt, partials, d_x, d_embed);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  sum_partials_kernel<<<(GRAD_SIZE + 255) / 256, 256, 0, st>>>(
-      partials, splits, GRAD_SIZE, grads);
+  sum_partials_kernel<<<(K::GRAD_SIZE + 255) / 256, 256, 0, st>>>(
+      partials, splits, K::GRAD_SIZE, grads);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+}  // namespace mf
+
+// The C entry points of K2 at shape SH, each named <name>_SUFFIX.
+#define MF_DECODER_BACKWARD_ENTRY_POINTS(SH, SUFFIX)                          \
+  extern "C" int mf_decoder_wt_size_##SUFFIX() {                             \
+    return mf::K2Layout<SH>::WT_SIZE;                                        \
+  }                                                                          \
+  extern "C" int mf_decoder_grad_size_##SUFFIX() {                           \
+    return mf::K2Layout<SH>::GRAD_SIZE;                                      \
+  }                                                                          \
+  extern "C" int mf_decoder_backward_##SUFFIX(                               \
+      const float* x, const float* g, const float* embed, int n,             \
+      MF_DECODER_ARGS, float* wt, float* partials, int splits, float* d_x,   \
+      float* d_embed, float* grads, int weight_grads, void* stream) {        \
+    return mf::decoder_backward<SH>(                                         \
+        x, g, embed, n,                                                      \
+        mf::make_dw(w0, b0, w1, b1, wr, br, ws0, bs0, ws1, bs1), wt,         \
+        partials, splits, d_x, d_embed, grads, weight_grads,                 \
+        (cudaStream_t)stream);                                               \
+  }

@@ -1,11 +1,13 @@
-// K1: fused field forward (embed + PE + decoder + softmax head).
+// K1: fused field forward (embed + PE + decoder + softmax head), a
+// template over the field shape (common.cuh FieldShape), instantiated
+// once per shape by shape.cu.
 //
 // K1 replaces mipsfusion_tpu/ops/field_pallas.py field_query_pallas
 // (_make_field_kernel): x [3, N] -> out [10, N] (rgb 3, sdf, entropy,
-// prob 5), or [1, N] sdf only, plus the embed [48, N] on request.
+// prob 5), or [1, N] sdf only, plus the embed [E, N] on request.
 //
 // What bounds it on this card: a point needs 38,233 MACs (29,696 sdf only)
-// against ~0.25 KB of I/O, so it is bound by arithmetic: the decoder's
+// at the flagship's E = 48 against ~0.25 KB of I/O, so it is bound by arithmetic: the decoder's
 // matrix products at float32 accuracy, which on the tensor cores take three
 // TF32 products each (tf32.cuh). What it reaches is the rate at which an
 // SM takes mma.sync instructions (measured: about one m16n8k8 every 2.3
@@ -23,33 +25,38 @@
 //    mma B-fragment order ([k-block][pair of 8-column tiles][lane][4], so a
 //    lane's B fragments of two tiles are one 16-byte load), rows permuted
 //    as above, widths padded with zeros (PE 51 -> 56, 5 logits and 3 rgb ->
-//    8 columns), biases behind them: 40,272 floats.
+//    8 columns, the embed to whole groups of 4 parts: E 48 and 44 -> 48,
+//    52 -> 64, its padded Ws0 rows zero), biases behind them: 40,272
+//    floats at E 48 and 44, 42,320 at E 52.
 //  * One persistent block per SM stages the packed set in shared memory
-//    once (161 KB; hi and lo parts of every weight would not fit, so a
-//    weight is split when it is used) and its warps walk the 16-point
-//    tiles with no block-wide barrier after that.
+//    once (161 KB, 169 KB at E 52; hi and lo parts of every weight would
+//    not fit, so a weight is split when it is used) and its warps walk the
+//    16-point tiles with no block-wide barrier after that.
 //  * Within a k-block the products of four column tiles are sent term by
 //    term (lo-hi x4, hi-lo x4, hi-hi x4), so neighbouring tensor-core
 //    instructions never wait on each other; the narrow head layers (5
 //    logits, 3 rgb, one column tile) run four k-blocks into four
 //    accumulators for the same reason and add them in a fixed order.
 //  * The four lanes of a quad share a point pair: each computes 6 of the 24
-//    sin/cos pairs and 3 of the 12 embed parts (2 plane scales, 10 groups
-//    of 4 CP channels) of each point, exactly the values its A fragments
-//    hold, and the softmax head is a few quad shuffles.
+//    sin/cos pairs and every fourth of the embed's parts (one per plane
+//    scale, one per group of 4 CP channels: 12 at the flagship, 11 or 13
+//    with a third scale) of each point, exactly the values its A fragments
+//    hold (zeros past the last part), and the softmax head is a few quad
+//    shuffles.
 // The summation order is fixed, so a call gives the same bits every time.
 // Precision: float32 storage, 3xTF32 products with float32 accumulation.
 
+#pragma once
 #include "common.cuh"
 #include "tf32.cuh"
 
 namespace mf {
+namespace {                                  // one copy per shape's object
 
 constexpr int K1_NT = 384;                   // 168 registers a thread
 constexpr int K1_WARPS = K1_NT / 32;
 constexpr int K1_BP = 16;                    // points of a warp's tile
 constexpr int PE_KB = 7;                     // k-blocks of 8: PE 51 -> 56
-constexpr int EMB_KB = EMB / 8;              // 6
 constexpr int HID_KB = HID / 8;              // 16
 constexpr int H1_KB = NSDF / 8;              // 8 (sdf half; the rgb half too)
 constexpr int HBR_KB = HBR / 8;              // 16
@@ -59,19 +66,27 @@ static_assert(NSDF == NRGB && HID == 128 && HBR == 128, "flagship widths");
 // [k-block][pair][lane][4]; a narrow one (8 columns): [k-block][lane][2].
 constexpr int WIDE_KB = 8 * 32 * 4;          // floats per k-block
 constexpr int NARROW_KB = 32 * 2;
-constexpr int PK_W0 = 0;
-constexpr int PK_W1 = PK_W0 + PE_KB * WIDE_KB;
-constexpr int PK_WS0 = PK_W1 + HID_KB * WIDE_KB;
-constexpr int PK_WS1 = PK_WS0 + (H1_KB + EMB_KB) * WIDE_KB;
-constexpr int PK_WR = PK_WS1 + HBR_KB * NARROW_KB;
-constexpr int PK_B0 = PK_WR + (H1_KB + PE_KB) * NARROW_KB;
-constexpr int PK_B1 = PK_B0 + HID;
-constexpr int PK_BS0 = PK_B1 + NSDF + NRGB;
-constexpr int PK_BS1 = PK_BS0 + HBR;         // 5 + 3 zeros
-constexpr int PK_BR = PK_BS1 + 8;            // 3 + 5 zeros
-constexpr int PK_SIZE = PK_BR + 8;
-static_assert(PK_SIZE == 40272 && PK_SIZE % 4 == 0, "packed size");
-constexpr int K1_SMEM = PK_SIZE * 4;         // 161,088 B: one block per SM
+
+// The packed set's layout at shape Sh. The embed's parts come in groups of
+// 4 (a thread holds one part of each group), and a group fills 2 k-blocks.
+template <class Sh>
+struct K1Layout {
+  static constexpr int NPG = (Sh::NPART + 3) / 4;   // part groups: 3, 3, 4
+  static constexpr int EMB_KB = 2 * NPG;            // k-blocks: 6, 6, 8
+  static constexpr int W0 = 0;
+  static constexpr int W1 = W0 + PE_KB * WIDE_KB;
+  static constexpr int WS0 = W1 + HID_KB * WIDE_KB;
+  static constexpr int WS1 = WS0 + (H1_KB + EMB_KB) * WIDE_KB;
+  static constexpr int WR = WS1 + HBR_KB * NARROW_KB;
+  static constexpr int B0 = WR + (H1_KB + PE_KB) * NARROW_KB;
+  static constexpr int B1 = B0 + HID;
+  static constexpr int BS0 = B1 + NSDF + NRGB;
+  static constexpr int BS1 = BS0 + HBR;             // 5 + 3 zeros
+  static constexpr int BR = BS1 + 8;                // 3 + 5 zeros
+  static constexpr int SIZE = BR + 8;
+  static constexpr int SMEM = SIZE * 4;             // one block per SM
+  static_assert(SIZE % 4 == 0 && SMEM <= 232448, "packed size");
+};
 
 // Which logical input row sits in slot s (0..7) of k-block kb.
 // After a layer: the accumulator of column tile kb holds columns 2t, 2t+1
@@ -86,32 +101,37 @@ __host__ __device__ __forceinline__ int perm_pe(int kb, int s) {
   if (kb < 6) return 3 + 2 * (4 * kb + (s & 3)) + (s >> 2);
   return s < 3 ? s : -1;
 }
-// Embed rows: thread t holds parts t, t+4, t+8 (4 rows each); part t + 4i
-// fills k-blocks 2i (rows 0, 1 of the part) and 2i+1 (rows 2, 3).
-__host__ __device__ __forceinline__ int perm_emb(int kb, int s) {
-  return 4 * ((s & 3) + 4 * (kb >> 1)) + 2 * (kb & 1) + (s >> 2);
+// Embed rows: thread t holds parts t, t+4, t+8, .. (4 rows each); part
+// t + 4i fills k-blocks 2i (rows 0, 1 of the part) and 2i+1 (rows 2, 3).
+// Rows at or past E are padding (-1).
+__host__ __device__ __forceinline__ int perm_emb(int kb, int s, int E) {
+  const int r = 4 * ((s & 3) + 4 * (kb >> 1)) + 2 * (kb & 1) + (s >> 2);
+  return r < E ? r : -1;
 }
 
+template <class Sh>
 __global__ void pack_weights_kernel(DecoderW dw, float* __restrict__ packed) {
+  using K = K1Layout<Sh>;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= PK_SIZE) return;
+  if (i >= K::SIZE) return;
   float v = 0.f;
-  if (i < PK_WS1) {                          // trunk0, trunk1, sdf0
-    const int layer = i < PK_W1 ? 0 : i < PK_WS0 ? 1 : 2;
-    const int r = i - (layer == 0 ? PK_W0 : layer == 1 ? PK_W1 : PK_WS0);
+  if (i < K::WS1) {                          // trunk0, trunk1, sdf0
+    const int layer = i < K::W1 ? 0 : i < K::WS0 ? 1 : 2;
+    const int r = i - (layer == 0 ? K::W0 : layer == 1 ? K::W1 : K::WS0);
     const int e = r & 3, lane = (r >> 2) & 31, np = (r >> 7) & 7;
     const int kb = r / WIDE_KB;
     const int slot = (lane & 3) + 4 * (e & 1);
     const int n = 8 * (2 * np + (e >> 1)) + (lane >> 2);
+    const int er = kb < H1_KB ? 0 : perm_emb(kb - H1_KB, slot, Sh::EMB);
     const int k = layer == 0 ? perm_pe(kb, slot)
                   : layer == 1 ? perm_chain(kb, slot)
                   : kb < H1_KB ? perm_chain(kb, slot)
-                               : NSDF + perm_emb(kb - H1_KB, slot);
+                  : er >= 0    ? NSDF + er : -1;
     const float* W = layer == 0 ? dw.w0 : layer == 1 ? dw.w1 : dw.ws0;
     if (k >= 0) v = W[k * 128 + n];
-  } else if (i < PK_B0) {                    // sdf1 (5 columns), rgb (3)
-    const bool rgb = i >= PK_WR;
-    const int r = i - (rgb ? PK_WR : PK_WS1);
+  } else if (i < K::B0) {                    // sdf1 (5 columns), rgb (3)
+    const bool rgb = i >= K::WR;
+    const int r = i - (rgb ? K::WR : K::WS1);
     const int e = r & 1, lane = (r >> 1) & 31, kb = r / NARROW_KB;
     const int slot = (lane & 3) + 4 * e, n = lane >> 2;
     int k = (!rgb || kb < H1_KB) ? perm_chain(kb, slot)
@@ -120,12 +140,12 @@ __global__ void pack_weights_kernel(DecoderW dw, float* __restrict__ packed) {
     const int nv = rgb ? 3 : NCLS;
     if (k >= 0 && n < nv) v = (rgb ? dw.wr : dw.ws1)[k * nv + n];
   } else {                                   // biases
-    const int r = i - PK_B0;
-    if (r < PK_B1 - PK_B0) v = dw.b0[r];
-    else if (i < PK_BS0) v = dw.b1[i - PK_B1];
-    else if (i < PK_BS1) v = dw.bs0[i - PK_BS0];
-    else if (i < PK_BR) v = i - PK_BS1 < NCLS ? dw.bs1[i - PK_BS1] : 0.f;
-    else v = i - PK_BR < 3 ? dw.br[i - PK_BR] : 0.f;
+    const int r = i - K::B0;
+    if (r < K::B1 - K::B0) v = dw.b0[r];
+    else if (i < K::BS0) v = dw.b1[i - K::B1];
+    else if (i < K::BS1) v = dw.bs0[i - K::BS0];
+    else if (i < K::BR) v = i - K::BS1 < NCLS ? dw.bs1[i - K::BS1] : 0.f;
+    else v = i - K::BR < 3 ? dw.br[i - K::BR] : 0.f;
   }
   packed[i] = v;
 }
@@ -266,16 +286,15 @@ __device__ __forceinline__ void quad_head(float l0, float l1, int t,
                  (v1 ? p1 * log2f(p1 + 1e-5f) : 0.f));
 }
 
-template <bool SDF_ONLY, bool RET_EMBED>
+template <class Sh, bool SDF_ONLY, bool RET_EMBED>
 __global__ void __launch_bounds__(K1_NT, 1)
-    field_forward_kernel(const float* __restrict__ x, int N,
-                         const float* __restrict__ s0,
-                         const float* __restrict__ s1,
-                         const float* __restrict__ cp,
+    field_forward_kernel(const float* __restrict__ x, int N, Planes P,
                          const float4* __restrict__ packed,
                          float* __restrict__ out, float* __restrict__ embed) {
+  using K = K1Layout<Sh>;
+  constexpr int EMB_KB = K::EMB_KB;
   extern __shared__ float4 sm4[];
-  for (int i = threadIdx.x; i < PK_SIZE / 4; i += K1_NT) sm4[i] = packed[i];
+  for (int i = threadIdx.x; i < K::SIZE / 4; i += K1_NT) sm4[i] = packed[i];
   __syncthreads();                           // the only block-wide barrier
   const float* W = reinterpret_cast<const float*>(sm4);
   const float2* W2 = reinterpret_cast<const float2*>(sm4);
@@ -316,7 +335,7 @@ __global__ void __launch_bounds__(K1_NT, 1)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         crgb[j][0] = crgb[j][1] = crgb[j][2] = crgb[j][3] = 0.f;
-      layer_narrow<PE_KB>(pe, W2 + (PK_WR + H1_KB * NARROW_KB) / 2, lane,
+      layer_narrow<PE_KB>(pe, W2 + (K::WR + H1_KB * NARROW_KB) / 2, lane,
                           crgb);
     }
 
@@ -324,8 +343,8 @@ __global__ void __launch_bounds__(K1_NT, 1)
     float a0[HID_KB][4];
     {
       float h0[HID_KB][4];
-      bias_init<HID_KB>(W + PK_B0, t, h0);
-      layer_wide<PE_KB, HID_KB>(pe, sm4 + PK_W0 / 4, lane, h0);
+      bias_init<HID_KB>(W + K::B0, t, h0);
+      layer_wide<PE_KB, HID_KB>(pe, sm4 + K::W0 / 4, lane, h0);
       frag_c_to_a<HID_KB, true>(h0, a0);
     }
 
@@ -333,11 +352,11 @@ __global__ void __launch_bounds__(K1_NT, 1)
     float rgb[4];
     if (!SDF_ONLY) {
       float h1r[H1_KB][4], ar[H1_KB][4];
-      bias_init<H1_KB>(W + PK_B1 + NSDF, t, h1r);
-      layer_wide<HID_KB, H1_KB>(a0, sm4 + PK_W1 / 4 + 4 * 32, lane, h1r);
+      bias_init<H1_KB>(W + K::B1 + NSDF, t, h1r);
+      layer_wide<HID_KB, H1_KB>(a0, sm4 + K::W1 / 4 + 4 * 32, lane, h1r);
       frag_c_to_a<H1_KB, false>(h1r, ar);
-      layer_narrow<H1_KB>(ar, W2 + PK_WR / 2, lane, crgb);
-      const float2 br = *reinterpret_cast<const float2*>(W + PK_BR + 2 * t);
+      layer_narrow<H1_KB>(ar, W2 + K::WR / 2, lane, crgb);
+      const float2 br = *reinterpret_cast<const float2*>(W + K::BR + 2 * t);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         rgb[i] = ((crgb[0][i] + crgb[1][i]) + (crgb[2][i] + crgb[3][i])) +
@@ -348,29 +367,24 @@ __global__ void __launch_bounds__(K1_NT, 1)
     float as[H1_KB][4];
     {
       float h1s[H1_KB][4];
-      bias_init<H1_KB>(W + PK_B1, t, h1s);
-      layer_wide<HID_KB, H1_KB>(a0, sm4 + PK_W1 / 4, lane, h1s);
+      bias_init<H1_KB>(W + K::B1, t, h1s);
+      layer_wide<HID_KB, H1_KB>(a0, sm4 + K::W1 / 4, lane, h1s);
       frag_c_to_a<H1_KB, false>(h1s, as);
     }
 
-    // ---- embed: parts t, t+4, t+8 of both points ----
+    // ---- embed: parts t, t+4, t+8, .. of both points ----
     float em[EMB_KB][4];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
+    for (int i = 0; i < K::NPG; ++i) {
       const int part = t + 4 * i;
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
-        float4 v;
-        if (i == 0 && t < 2)
-          v = t == 0 ? scale_lookup<R0>(s0, xp[q])
-                     : scale_lookup<R1>(s1, xp[q]);
-        else
-          v = cp_lookup4(cp, xp[q], 4 * (part - 2));
+        const float4 v = embed_part<Sh>(P, xp[q], part);
         em[2 * i][q] = v.x;
         em[2 * i][2 + q] = v.y;
         em[2 * i + 1][q] = v.z;
         em[2 * i + 1][2 + q] = v.w;
-        if (RET_EMBED && ok[q]) {
+        if (RET_EMBED && ok[q] && part < Sh::NPART) {
           float* e = embed + (size_t)(4 * part) * S + n[q];
           e[0] = v.x; e[S] = v.y; e[2 * S] = v.z; e[3 * S] = v.w;
         }
@@ -381,9 +395,9 @@ __global__ void __launch_bounds__(K1_NT, 1)
     float a2[HBR_KB][4];
     {
       float h2[HBR_KB][4];
-      bias_init<HBR_KB>(W + PK_BS0, t, h2);
-      layer_wide<H1_KB, HBR_KB>(as, sm4 + PK_WS0 / 4, lane, h2);
-      layer_wide<EMB_KB, HBR_KB>(em, sm4 + (PK_WS0 + H1_KB * WIDE_KB) / 4,
+      bias_init<HBR_KB>(W + K::BS0, t, h2);
+      layer_wide<H1_KB, HBR_KB>(as, sm4 + K::WS0 / 4, lane, h2);
+      layer_wide<EMB_KB, HBR_KB>(em, sm4 + (K::WS0 + H1_KB * WIDE_KB) / 4,
                                  lane, h2);
       frag_c_to_a<HBR_KB, true>(h2, a2);
     }
@@ -393,8 +407,8 @@ __global__ void __launch_bounds__(K1_NT, 1)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       cl[j][0] = cl[j][1] = cl[j][2] = cl[j][3] = 0.f;
-    layer_narrow<HBR_KB>(a2, W2 + PK_WS1 / 2, lane, cl);
-    const float2 bs1 = *reinterpret_cast<const float2*>(W + PK_BS1 + 2 * t);
+    layer_narrow<HBR_KB>(a2, W2 + K::WS1 / 2, lane, cl);
+    const float2 bs1 = *reinterpret_cast<const float2*>(W + K::BS1 + 2 * t);
     float lg[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -426,71 +440,81 @@ __global__ void __launch_bounds__(K1_NT, 1)
   }
 }
 
-}  // namespace mf
+// ---------------------------------------------------------- launches ----
 
-using namespace mf;
-
-template <bool SDF_ONLY, bool RET_EMBED>
-static cudaError_t launch_k1(const float* x, int n, const float* s0,
-                             const float* s1, const float* cp,
-                             const float* packed, float* out, float* embed,
-                             int sms, cudaStream_t st) {
+template <class Sh, bool SDF_ONLY, bool RET_EMBED>
+cudaError_t launch_k1(const float* x, int n, Planes P, const float* packed,
+                      float* out, float* embed, int sms, cudaStream_t st) {
+  constexpr int smem = K1Layout<Sh>::SMEM;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        field_forward_kernel<SDF_ONLY, RET_EMBED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, K1_SMEM);
+        field_forward_kernel<Sh, SDF_ONLY, RET_EMBED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const int n_tiles = (n + K1_BP - 1) / K1_BP;
   const int need = (n_tiles + K1_WARPS - 1) / K1_WARPS;
   const int grid = need < sms ? need : sms;
-  field_forward_kernel<SDF_ONLY, RET_EMBED><<<grid, K1_NT, K1_SMEM, st>>>(
-      x, n, s0, s1, cp, reinterpret_cast<const float4*>(packed), out, embed);
+  field_forward_kernel<Sh, SDF_ONLY, RET_EMBED><<<grid, K1_NT, smem, st>>>(
+      x, n, P, reinterpret_cast<const float4*>(packed), out, embed);
   return cudaGetLastError();
 }
 
-extern "C" int mf_field_packed_size() { return PK_SIZE; }
-
 // The decoder's weights in K1's packed order (the first step of
-// mf_field_forward, on its own).
-extern "C" int mf_field_pack_weights(const float* w0, const float* b0,
-                                     const float* w1, const float* b1,
-                                     const float* wr, const float* br,
-                                     const float* ws0, const float* bs0,
-                                     const float* ws1, const float* bs1,
-                                     float* packed, void* stream) {
-  DecoderW dw = make_dw(w0, b0, w1, b1, wr, br, ws0, bs0, ws1, bs1);
-  pack_weights_kernel<<<(PK_SIZE + 255) / 256, 256, 0,
-                        (cudaStream_t)stream>>>(dw, packed);
+// field_forward, on its own).
+template <class Sh>
+int pack_weights(DecoderW dw, float* packed, cudaStream_t st) {
+  pack_weights_kernel<Sh><<<(K1Layout<Sh>::SIZE + 255) / 256, 256, 0, st>>>(
+      dw, packed);
   return (int)cudaGetLastError();
 }
 
-// packed: scratch of mf_field_packed_size() floats; sms: the device's SM
-// count (the persistent grid has at most one block per SM).
-extern "C" int mf_field_forward(const float* x, int n, const float* s0,
-                                const float* s1, const float* cp,
-                                const float* w0, const float* b0,
-                                const float* w1, const float* b1,
-                                const float* wr, const float* br,
-                                const float* ws0, const float* bs0,
-                                const float* ws1, const float* bs1,
-                                float* packed, int sms, float* out,
-                                float* embed, int sdf_only, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+// packed: scratch of K1Layout<Sh>::SIZE floats; sms: the device's SM count
+// (the persistent grid has at most one block per SM).
+template <class Sh>
+int field_forward(const float* x, int n, Planes P, DecoderW dw,
+                  float* packed, int sms, float* out, float* embed,
+                  int sdf_only, cudaStream_t st) {
   if (n <= 0) return (int)cudaSuccess;
-  int e = mf_field_pack_weights(w0, b0, w1, b1, wr, br, ws0, bs0, ws1, bs1,
-                                packed, stream);
+  int e = pack_weights<Sh>(dw, packed, st);
   if (e != (int)cudaSuccess) return e;
   if (sdf_only) {
     // no caller wants the embed beside the sdf alone: no such instance
     if (embed) return (int)cudaErrorInvalidValue;
-    return (int)launch_k1<true, false>(x, n, s0, s1, cp, packed, out, embed,
-                                       sms, st);
+    return (int)launch_k1<Sh, true, false>(x, n, P, packed, out, embed, sms,
+                                           st);
   }
-  return embed ? (int)launch_k1<false, true>(x, n, s0, s1, cp, packed, out,
-                                             embed, sms, st)
-               : (int)launch_k1<false, false>(x, n, s0, s1, cp, packed, out,
-                                              embed, sms, st);
+  return embed ? (int)launch_k1<Sh, false, true>(x, n, P, packed, out, embed,
+                                                 sms, st)
+               : (int)launch_k1<Sh, false, false>(x, n, P, packed, out,
+                                                  embed, sms, st);
 }
+
+}  // namespace
+}  // namespace mf
+
+// The C entry points of K1 at shape SH, each named <name>_SUFFIX. Plane
+// pointers are s0, s1, s2 (s2 null with 2 scales), then cp; the decoder's
+// w, b per layer (trunk0, trunk1, rgb, sdf0, sdf1) follow.
+#define MF_FIELD_FORWARD_ENTRY_POINTS(SH, SUFFIX)                             \
+  extern "C" int mf_field_packed_size_##SUFFIX() {                           \
+    return mf::K1Layout<SH>::SIZE;                                           \
+  }                                                                          \
+  extern "C" int mf_field_pack_weights_##SUFFIX(MF_DECODER_ARGS,             \
+                                                float* packed,               \
+                                                void* stream) {              \
+    return mf::pack_weights<SH>(                                             \
+        mf::make_dw(w0, b0, w1, b1, wr, br, ws0, bs0, ws1, bs1), packed,     \
+        (cudaStream_t)stream);                                               \
+  }                                                                          \
+  extern "C" int mf_field_forward_##SUFFIX(                                  \
+      const float* x, int n, const float* s0, const float* s1,               \
+      const float* s2, const float* cp, MF_DECODER_ARGS, float* packed,      \
+      int sms, float* out, float* embed, int sdf_only, void* stream) {       \
+    return mf::field_forward<SH>(                                            \
+        x, n, mf::Planes{{s0, s1, s2}, cp},                                  \
+        mf::make_dw(w0, b0, w1, b1, wr, br, ws0, bs0, ws1, bs1), packed,     \
+        sms, out, embed, sdf_only, (cudaStream_t)stream);                    \
+  }

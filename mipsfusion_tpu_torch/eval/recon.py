@@ -4,6 +4,8 @@
     analytic ground-truth SDF (exact for the synthetic scenes);
   * ``mesh_completion``: fraction of ground-truth surface samples within
     ``tau`` of a mesh vertex;
+  * ``mesh_error_split``: where a synthetic mesh's error sits (behind the
+    room's walls or inside it);
   * ``depth_l1``: re-rendered depth error against ground-truth frames.
 """
 
@@ -34,6 +36,27 @@ def mesh_completion(gt_points: np.ndarray, verts: np.ndarray,
     d, _ = cKDTree(verts).query(gt_points, k=1,
                                 distance_upper_bound=tau * 1.001)
     return float((d < tau).mean())
+
+
+def mesh_error_split(verts: np.ndarray, room_half,
+                     tau: float = 0.05) -> Dict[str, float]:
+    """Where a synthetic mesh's accuracy error sits: the share of
+    vertices outside the room's box (behind its walls), the accuracy
+    (mean |SDF|) of those inside, and the share farther than ``tau`` from
+    the surface with their mean |SDF| (meters)."""
+    import torch
+    from ..datasets.synthetic import props_on, scene_sdf
+    half = torch.as_tensor(room_half, dtype=torch.float32).cpu()
+    d = np.abs(scene_sdf(torch.as_tensor(np.asarray(verts),
+                                         dtype=torch.float32),
+                         half, props_on("cpu")).numpy())
+    inside = (np.abs(verts) < half.numpy()).all(axis=1)
+    far = d > tau
+    return {"outside_share": float(1.0 - inside.mean()),
+            "inside_accuracy_m": float(d[inside].mean()) if inside.any()
+            else float("inf"),
+            "far_share": float(far.mean()),
+            "far_mean_m": float(d[far].mean()) if far.any() else 0.0}
 
 
 def depth_l1(pred_depth: np.ndarray, gt_depth: np.ndarray) -> float:

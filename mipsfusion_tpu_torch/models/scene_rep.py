@@ -7,7 +7,7 @@ wrappers of ``ops/field_cuda.py``: the differentiable ``FieldQueryT``
 for training (GO, BA, init) and the SDF-only forward for RO fitness.
 
 Field parameters are a tree in the JAX layout,
-``{"planes": {"s0", "s1", "cp"}, "decoder": {layer: {"w", "b"}}}``;
+``{"planes": {"s0", "s1"(, "s2"), "cp"}, "decoder": {layer: {"w", "b"}}}``;
 ``Field`` holds them as ``nn.Parameter``s.
 """
 

@@ -6,11 +6,12 @@ replaces ``field_query_pallas``, ``decoder_backward`` replaces
 ``_decoder_bwd_call`` and ``FieldQueryT`` replaces the custom VJP of
 ``field_query_diff_T``. Each wrapper serves a CPU tensor with its plain
 PyTorch version and a CUDA tensor with its kernel (K1
-``csrc/field_forward.cu``, K2 ``csrc/field.cu``), or raises;
+``csrc/field_forward.cuh``, K2 ``csrc/field.cuh``) at the field's shape
+(one of ``_build.SHAPES``; any other shape raises);
 ``<wrapper>.launches`` counts kernel launches.
 
 Field parameters are the JAX tree's layout:
-``{"planes": {"s0", "s1", "cp"}, "decoder": {layer: {"w", "b"}}}``.
+``{"planes": {"s0", "s1"(, "s2"), "cp"}, "decoder": {layer: {"w", "b"}}}``.
 Point-indexed arrays are points-minor: x [3, N], out [5 + C, N],
 embed [E, N].
 """
@@ -26,7 +27,7 @@ from ..models.decoder import LAYERS, decoder_apply
 from . import _build
 from .encoding import frequency_encode, triplane_encode
 from .triplane_cuda import (encode_forward, plane_backward, plane_keys,
-                            planes_from_tensors, x_backward)
+                            plane_ptrs, planes_from_tensors, x_backward)
 
 Tree = Dict[str, Dict]
 
@@ -40,18 +41,10 @@ def _dec_tree(flat) -> Tree:
             for i, name in enumerate(LAYERS)}
 
 
-def _check_flagship(n_scales: int, n_freq: int, n_class: int):
-    if (n_scales, n_freq, n_class) != (2, _build.N_FREQ, _build.N_CLASS):
-        raise ValueError(
-            f"field kernels take 2 scales, {_build.N_FREQ} PE bands and "
-            f"{_build.N_CLASS} classes; got {(n_scales, n_freq, n_class)}")
-
-
-def _dec_ptrs(dec: Tree):
+def _dec_ptrs(dec: Tree, shape):
     return [_build.ptr(t, f"decoder.{LAYERS[i // 2]}.{'wb'[i % 2]}", shp)
-            for i, (t, shp) in enumerate(zip(
-                _dec_flat(dec),
-                [s for pair in _build.DECODER_SHAPES for s in pair]))]
+            for i, (t, shp) in enumerate(zip(_dec_flat(dec),
+                                             shape.decoder_flat_shapes))]
 
 
 # ----------------------------------------------------------------- K1 ----
@@ -77,10 +70,12 @@ def _perm_pe(kb, s):
                     np.where(s < 3, s, -1))
 
 
-def _perm_emb(kb, s):
-    """Embed rows: thread t holds parts t, t + 4, t + 8 (4 rows each);
-    part t + 4 i fills k-blocks 2 i and 2 i + 1."""
-    return 4 * ((s & 3) + 4 * (kb >> 1)) + 2 * (kb & 1) + (s >> 2)
+def _perm_emb(kb, s, embed_dim):
+    """Embed rows: thread t holds parts t, t + 4, t + 8, .. (4 rows each);
+    part t + 4 i fills k-blocks 2 i and 2 i + 1. Rows at or past the embed
+    width are zero padding (-1)."""
+    r = 4 * ((s & 3) + 4 * (kb >> 1)) + 2 * (kb & 1) + (s >> 2)
+    return np.where(r < embed_dim, r, -1)
 
 
 def _wide_index(rows, base: int) -> np.ndarray:
@@ -115,29 +110,29 @@ def _pad_index(base: int, n_valid: int, n: int) -> np.ndarray:
     return np.where(i < n_valid, base + i, -1)
 
 
-_packed_index = None
+_packed_index = {}
 
 
-def packed_index() -> np.ndarray:
-    """For every float of K1's packed weight set, its index into the
-    concatenation of the decoder's flat parameters (w, b per layer in
-    ``LAYERS`` order), or -1 for zero padding."""
-    global _packed_index
-    if _packed_index is None:
-        sizes = [int(np.prod(s)) for pair in _build.DECODER_SHAPES
-                 for s in pair]
+def packed_index(shape) -> np.ndarray:
+    """For every float of K1's packed weight set at a table shape, its
+    index into the concatenation of the decoder's flat parameters (w, b
+    per layer in ``LAYERS`` order), or -1 for zero padding."""
+    if shape.name not in _packed_index:
+        sizes = [int(np.prod(s)) for s in shape.decoder_flat_shapes]
         off = np.concatenate([[0], np.cumsum(sizes)])
         w0, b0, w1, b1, wr, br, ws0, bs0, ws1, bs1 = off[:10]
         s = np.arange(8)[None, :]
+        kb = np.arange(shape.k1_embed_kblocks)[:, None]
 
         def rows(fn, n_kb):
             return fn(np.arange(n_kb)[:, None], s)
 
         pe, chain16, chain8 = (rows(_perm_pe, 7), rows(_perm_chain, 16),
                                rows(_perm_chain, 8))
-        emb = 64 + rows(_perm_emb, 6)
+        emb = _perm_emb(kb, s, shape.embed_dim)
+        emb = np.where(emb >= 0, 64 + emb, -1)
         pe_rgb = np.where(pe >= 0, 64 + pe, -1)
-        _packed_index = np.concatenate([
+        _packed_index[shape.name] = np.concatenate([
             _wide_index(pe, w0),
             _wide_index(chain16, w1),
             _wide_index(np.concatenate([chain8, emb]), ws0),
@@ -146,28 +141,27 @@ def packed_index() -> np.ndarray:
             _pad_index(b0, 128, 128), _pad_index(b1, 128, 128),
             _pad_index(bs0, 128, 128), _pad_index(bs1, _build.N_CLASS, 8),
             _pad_index(br, 3, 8)])
-    return _packed_index
+    return _packed_index[shape.name]
 
 
-def pack_decoder_weights_plain(dec: Tree) -> torch.Tensor:
-    """The decoder's weights in K1's packed order (flagship widths), as
-    csrc/field_forward.cu pack_weights_kernel writes them."""
+def pack_decoder_weights_plain(dec: Tree, shape) -> torch.Tensor:
+    """The decoder's weights in K1's packed order at a table shape, as
+    csrc/field_forward.cuh pack_weights_kernel writes them."""
     flat = torch.cat([t.reshape(-1) for t in _dec_flat(dec)])
-    idx = torch.as_tensor(packed_index(), device=flat.device)
+    idx = torch.as_tensor(packed_index(shape), device=flat.device)
     return torch.where(idx >= 0, flat[idx.clamp(min=0)],
                        torch.zeros((), dtype=flat.dtype, device=flat.device))
 
 
-def pack_decoder_weights(dec: Tree) -> torch.Tensor:
+def pack_decoder_weights(dec: Tree, shape) -> torch.Tensor:
     """K1's packed weight set: the plain packer for CPU tensors, the
     kernel's own first step for CUDA tensors."""
     w = dec[LAYERS[0]]["w"]
     if w.device.type == "cpu":
-        return pack_decoder_weights_plain(dec)
-    lib = _build.lib()
-    packed = torch.empty((lib.mf_field_packed_size(),), device=w.device)
-    err = lib.mf_field_pack_weights(*_dec_ptrs(dec), packed.data_ptr(),
-                                    _build.stream())
+        return pack_decoder_weights_plain(dec, shape)
+    packed = torch.empty((shape.size("field_packed_size"),), device=w.device)
+    err = shape.fn("field_pack_weights")(*_dec_ptrs(dec, shape),
+                                         packed.data_ptr(), _build.stream())
     _build.check(err, "pack_decoder_weights")
     return packed
 
@@ -194,21 +188,17 @@ def field_forward(xT: torch.Tensor, planes: Dict[str, torch.Tensor],
     if xT.device.type == "cpu":
         return field_forward_plain(xT, planes, dec, n_scales, n_freq,
                                    n_class, sdf_only, return_embed)
-    _check_flagship(n_scales, n_freq, n_class)
+    shape = _build.kernel_shape(planes, n_scales, n_freq, n_class)
     N = xT.shape[1]
-    args = ([_build.ptr(xT, "x", (3, N)),
-             N,
-             _build.ptr(planes["s0"], "s0", _build.PLANE_SHAPES[0]),
-             _build.ptr(planes["s1"], "s1", _build.PLANE_SHAPES[1]),
-             _build.ptr(planes["cp"], "cp", _build.CP_SHAPE)]
-            + _dec_ptrs(dec))
-    lib = _build.lib()
+    args = ([_build.ptr(xT, "x", (3, N)), N] + plane_ptrs(planes, shape)
+            + _dec_ptrs(dec, shape))
     out = torch.empty((1 if sdf_only else 5 + n_class, N), device=xT.device)
-    embed = (torch.empty((_build.EMBED_DIM, N), device=xT.device)
+    embed = (torch.empty((shape.embed_dim, N), device=xT.device)
              if return_embed else None)
     # scratch for the weights in the kernel's fragment order
-    packed = torch.empty((lib.mf_field_packed_size(),), device=xT.device)
-    err = lib.mf_field_forward(
+    packed = torch.empty((shape.size("field_packed_size"),),
+                         device=xT.device)
+    err = shape.fn("field_forward")(
         *args, packed.data_ptr(), _build.sm_count(xT.device), out.data_ptr(),
         embed.data_ptr() if return_embed else None, int(sdf_only),
         _build.stream())
@@ -247,25 +237,25 @@ def decoder_backward(xT: torch.Tensor, g: torch.Tensor, embed: torch.Tensor,
     if xT.device.type == "cpu":
         return decoder_backward_plain(xT, g, embed, dec, n_freq, n_class,
                                       weight_grads)
-    _check_flagship(2, n_freq, n_class)
+    # K2 depends on the field through the embed width alone
+    shape = _build.kernel_shape(n_freq=n_freq, n_class=n_class,
+                                embed_dim=embed.shape[0])
     N = xT.shape[1]
-    lib = _build.lib()
     args = ([_build.ptr(xT, "x", (3, N)),
              _build.ptr(g, "g", (5 + n_class, N)),
-             _build.ptr(embed, "embed", (_build.EMBED_DIM, N)),
-             N] + _dec_ptrs(dec))
+             _build.ptr(embed, "embed", (shape.embed_dim, N)),
+             N] + _dec_ptrs(dec, shape))
     dev = xT.device
-    wt = torch.empty((lib.mf_decoder_wt_size(),), device=dev)
-    sizes = [(w[0] + 1) * w[1] for w, _ in _build.DECODER_SHAPES]
-    total = sum(sizes)
+    wt = torch.empty((shape.size("decoder_wt_size"),), device=dev)
+    total = shape.grad_offsets[-1]        # the library's, checked on load
     # one partial sum per block of the persistent grid (a block per SM)
-    splits = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = _build.sm_count(dev)
     partials = (torch.zeros((splits, total), device=dev) if weight_grads
                 else wt)
     grads = torch.empty((total,), device=dev) if weight_grads else wt
     d_x = torch.empty((3, N), device=dev)
-    d_embed = torch.empty((_build.EMBED_DIM, N), device=dev)
-    err = lib.mf_decoder_backward(
+    d_embed = torch.empty((shape.embed_dim, N), device=dev)
+    err = shape.fn("decoder_backward")(
         *args, wt.data_ptr(), partials.data_ptr(), splits, d_x.data_ptr(),
         d_embed.data_ptr(), grads.data_ptr(), int(weight_grads),
         _build.stream())
@@ -273,15 +263,23 @@ def decoder_backward(xT: torch.Tensor, g: torch.Tensor, embed: torch.Tensor,
     decoder_backward.launches += 1
     if not weight_grads:
         return d_x, d_embed, None
-    tree, off = {}, 0
-    for name, ((fi, fo), _), n in zip(LAYERS, _build.DECODER_SHAPES, sizes):
-        block = grads[off:off + n].view(fi + 1, fo)
-        tree[name] = {"w": block[:fi], "b": block[fi]}
-        off += n
-    return d_x, d_embed, tree
+    return d_x, d_embed, decoder_grads_from_flat(grads, shape)
 
 
 decoder_backward.launches = 0
+
+
+def decoder_grads_from_flat(flat: torch.Tensor, shape) -> Tree:
+    """K2's flat weight gradient -> {layer: {"w", "b"}}: per layer (in
+    ``LAYERS`` order) the [in + 1, out] block of w rows, then the bias row
+    (the JAX kernel's layout), at the real embed width."""
+    off = shape.grad_offsets
+    tree = {}
+    for i, (name, ((fi, fo), _)) in enumerate(zip(LAYERS,
+                                                   shape.decoder_shapes)):
+        block = flat[off[i]:off[i + 1]].view(fi + 1, fo)
+        tree[name] = {"w": block[:fi], "b": block[fi]}
+    return tree
 
 
 # ------------------------------------------------ differentiable query ----

@@ -7,8 +7,8 @@ replaces ``_fused_forward``, ``plane_backward`` replaces
 and ``TriplaneEncode`` / ``triplane_encode`` the custom VJP of
 ``triplane_encode_pallas``. Each wrapper serves a CPU tensor with its
 plain PyTorch version and a CUDA tensor with the kernel in
-``csrc/triplane.cu`` (or raises); ``<wrapper>.launches`` counts kernel
-launches.
+``csrc/triplane.cuh`` at the field's shape (one of ``_build.SHAPES``;
+any other shape raises); ``<wrapper>.launches`` counts kernel launches.
 
 The encode op takes and returns the reference's row layout (x [N, 3] ->
 [N, E]); K3 and K4 take points-minor arrays: x [3, N], d_embed [E, N].
@@ -31,6 +31,15 @@ def _plane_list(planes: Dict[str, torch.Tensor], n_scales: int):
     return [planes[f"s{s}"] for s in range(n_scales)]
 
 
+def plane_ptrs(planes: Dict[str, torch.Tensor], shape) -> list:
+    """The kernels' plane arguments at a table shape: s0, s1, s2 (None with
+    2 scales), cp, each checked against the shape."""
+    ptrs = [_build.ptr(planes[f"s{s}"], f"s{s}", shp)
+            for s, shp in enumerate(shape.plane_shapes)]
+    return (ptrs + [None] * (3 - len(ptrs))
+            + [_build.ptr(planes["cp"], "cp", shape.cp_shape)])
+
+
 # ----------------------------------------------------------------- K0 ----
 
 def encode_forward(x: torch.Tensor, planes: Dict[str, torch.Tensor],
@@ -39,17 +48,12 @@ def encode_forward(x: torch.Tensor, planes: Dict[str, torch.Tensor],
     (``encoding.triplane_encode``) for a CPU tensor, K0 for a CUDA one."""
     if x.device.type == "cpu":
         return encode_forward_plain(planes, x, n_scales)
-    if n_scales != 2 or "cp" not in planes:
-        raise ValueError("encode_forward kernel: flagship field only "
-                         "(2 scales + CP)")
+    shape = _build.kernel_shape(planes, n_scales)
     N = x.shape[0]
-    args = [_build.ptr(x, "x", (N, 3)),
-            _build.ptr(planes["s0"], "s0", _build.PLANE_SHAPES[0]),
-            _build.ptr(planes["s1"], "s1", _build.PLANE_SHAPES[1]),
-            _build.ptr(planes["cp"], "cp", _build.CP_SHAPE)]
-    out = torch.empty((N, _build.EMBED_DIM), device=x.device)
-    err = _build.lib().mf_encode_forward(*args, N, out.data_ptr(),
-                                         _build.stream())
+    args = [_build.ptr(x, "x", (N, 3))] + plane_ptrs(planes, shape)
+    out = torch.empty((N, shape.embed_dim), device=x.device)
+    err = shape.fn("encode_forward")(*args, N, out.data_ptr(),
+                                     _build.stream())
     _build.check(err, "encode_forward")
     encode_forward.launches += 1
     return out
@@ -156,29 +160,27 @@ def plane_backward(xT: torch.Tensor, d_embed: torch.Tensor,
                    n_scales: int) -> Dict[str, torch.Tensor]:
     if xT.device.type == "cpu":
         return plane_backward_plain(xT, d_embed, planes, n_scales)
-    if n_scales != 2 or "cp" not in planes:
-        raise ValueError("plane_backward kernel: flagship field only "
-                         "(2 scales + CP)")
+    shape = _build.kernel_shape(planes, n_scales)
     N = xT.shape[1]
-    cp = planes["cp"]
     args = [_build.ptr(xT, "x", (3, N)),
-            _build.ptr(d_embed, "d_embed", (_build.EMBED_DIM, N)),
-            _build.ptr(cp, "cp", _build.CP_SHAPE)]
-    lib = _build.lib()
+            _build.ptr(d_embed, "d_embed", (shape.embed_dim, N)),
+            plane_ptrs(planes, shape)[3]]    # cp; every table is checked
     dev = xT.device
-    d_s0 = torch.empty(_build.PLANE_SHAPES[0], device=dev)
-    d_s1 = torch.empty(_build.PLANE_SHAPES[1], device=dev)
-    d_cp = torch.empty(_build.CP_SHAPE, device=dev)
+    out = {f"s{s}": torch.empty(shp, device=dev)
+           for s, shp in enumerate(shape.plane_shapes)}
+    out["cp"] = torch.empty(shape.cp_shape, device=dev)
+    d_planes = [out[f"s{s}"].data_ptr() for s in range(shape.n_scales)]
+    d_planes += [None] * (3 - len(d_planes))
     # the fixed-point accumulators and the magnitude maxima (csrc: K3)
-    acc = torch.zeros((lib.mf_plane_backward_acc_size(),), dtype=torch.int64,
-                      device=dev)
+    acc = torch.zeros((shape.size("plane_backward_acc_size"),),
+                      dtype=torch.int64, device=dev)
     mx = torch.zeros((3,), dtype=torch.int32, device=dev)
-    err = lib.mf_plane_backward(
-        args[0], args[1], args[2], N, d_s0.data_ptr(), d_s1.data_ptr(),
-        d_cp.data_ptr(), acc.data_ptr(), mx.data_ptr(), _build.stream())
+    err = shape.fn("plane_backward")(
+        *args, N, *d_planes, out["cp"].data_ptr(), acc.data_ptr(),
+        mx.data_ptr(), _build.stream())
     _build.check(err, "plane_backward")
     plane_backward.launches += 1
-    return {"s0": d_s0, "s1": d_s1, "cp": d_cp}
+    return out
 
 
 plane_backward.launches = 0
@@ -242,19 +244,15 @@ def x_backward(xT: torch.Tensor, d_embed: torch.Tensor,
                d_x_pe: Optional[torch.Tensor] = None) -> torch.Tensor:
     if xT.device.type == "cpu":
         return x_backward_plain(xT, d_embed, planes, n_scales, d_x_pe)
-    if n_scales != 2 or "cp" not in planes:
-        raise ValueError("x_backward kernel: flagship field only "
-                         "(2 scales + CP)")
+    shape = _build.kernel_shape(planes, n_scales)
     N = xT.shape[1]
-    args = [_build.ptr(xT, "x", (3, N)),
-            _build.ptr(d_embed, "d_embed", (_build.EMBED_DIM, N)),
-            _build.ptr(planes["s0"], "s0", _build.PLANE_SHAPES[0]),
-            _build.ptr(planes["s1"], "s1", _build.PLANE_SHAPES[1]),
-            _build.ptr(planes["cp"], "cp", _build.CP_SHAPE)]
+    args = ([_build.ptr(xT, "x", (3, N)),
+             _build.ptr(d_embed, "d_embed", (shape.embed_dim, N))]
+            + plane_ptrs(planes, shape))
     add = None if d_x_pe is None else _build.ptr(d_x_pe, "d_x_pe", (3, N))
     d_x = torch.empty((3, N), device=xT.device)
-    err = _build.lib().mf_x_backward(*args, N, add, d_x.data_ptr(),
-                                     _build.stream())
+    err = shape.fn("x_backward")(*args, N, add, d_x.data_ptr(),
+                                 _build.stream())
     _build.check(err, "x_backward")
     x_backward.launches += 1
     return d_x

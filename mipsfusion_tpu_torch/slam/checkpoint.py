@@ -18,7 +18,7 @@ same numbers: optax's ``count``, ``mu`` and ``nu`` are Adam's ``step``,
 order (``decoder``, then ``embed``), the group's count, then its ``mu``
 and its ``nu`` over the group's parameters in sorted key order (decoder
 layers ``rgb, sdf0, sdf1, trunk0, trunk1``, each ``b, w``; planes
-``cp, s0, s1``). A file whose leaves do not match that layout gives a
+``cp, s0, s1``, and ``s2`` with a third scale). A file whose leaves do not match that layout gives a
 fresh optimizer, as the JAX package's ``load_opt_state`` does.
 
 Capacity: the JAX package rounds its frame capacity up to a multiple of

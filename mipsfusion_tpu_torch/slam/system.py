@@ -35,6 +35,7 @@ on one device.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from collections import defaultdict
@@ -324,6 +325,12 @@ class MIPSFusionTorch:
         self.H, self.W = dataset.H, dataset.W
 
         self.fcfg = sr.FieldConfig.from_dict(config)
+        # tracking may run a leaner z-ladder than mapping:
+        # tracking.n_samples_d / n_range_d override training.* for the
+        # tracker alone (mapping, BA, refine and the mesher keep fcfg)
+        tz = {k: config["tracking"][k] for k in ("n_samples_d", "n_range_d")
+              if k in config["tracking"]}
+        self.fcfg_track = dataclasses.replace(self.fcfg, **tz)
         self.rcfg = tracker.ROConfig.from_dict(config)
         self.gcfg = tracker.GOConfig.from_dict(config)
         self.mcfg = mapper.MapConfig.from_dict(config)
@@ -494,7 +501,7 @@ class MIPSFusionTorch:
         use_cs = bool(self.config["tracking"]["const_speed"]
                       and (i - self.state.last_switch_frame) >= 2)
         res = tracker.track_frame_update(
-            self.field.params(detach=True), self.fcfg, self.consts,
+            self.field.params(detach=True), self.fcfg_track, self.consts,
             self.rcfg, self.gcfg, self.pst, self._generator("track", i),
             packed, self.state, i, use_cs, self.lw, self.rcfg.n_iters,
             self.gcfg.n_iters, self.keyframe_every, self._loss_ewma)

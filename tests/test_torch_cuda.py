@@ -1,4 +1,6 @@
-"""The CUDA kernels on the card, against their plain PyTorch versions.
+"""The CUDA kernels on the card, against their plain PyTorch versions, at
+every field shape the kernels are compiled for (``_build.SHAPES``: the
+flagship's, the CP profile's and the FastCaMo-large family's).
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. This file imports neither jax nor the JAX package, so it also
@@ -12,24 +14,28 @@ import pytest
 import torch
 
 import chip_smoke
+from mipsfusion_tpu_torch.ops import _build
 from mipsfusion_tpu_torch.ops import field_cuda as fc
 from mipsfusion_tpu_torch.ops import triplane_cuda as tc
 
 pytestmark = pytest.mark.cuda
-META = (2, 8, 5)
+SHAPES = ("flag", "cp", "fcl")
 
 
-@pytest.fixture(scope="module")
-def card():
+@pytest.fixture(scope="module", params=SHAPES)
+def card(request):
+    """(device, params at the shape, (n_scales, PE bands, classes), E)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda")
-    prm = chip_smoke.flagship_params(0, dev)
-    return dev, prm
+    prm = chip_smoke.field_params(request.param, 0, dev)
+    ns = sum(k.startswith("s") for k in prm["planes"])
+    E = 4 * ns + prm["planes"]["cp"].shape[-1]
+    return dev, prm, (ns, 8, 5), E
 
 
 def test_forward_kernels_match_plain(card):
-    dev, prm = card
+    dev, prm, META, E = card
     x = chip_smoke.test_points(20_000, 1, dev)
     planes, dec = prm["planes"], prm["decoder"]
     out, emb = fc.field_forward(x, planes, dec, *META, return_embed=True)
@@ -45,7 +51,8 @@ def test_backward_kernels_match_plain(card):
     """K2 with a cotangent that is zero near ReLU kinks (see
     chip_smoke.kink_free), K3 (fixed-point atomics) and K4, relative
     1e-4."""
-    dev, prm = card
+    dev, prm, META, E = card
+    ns = META[0]
     x = chip_smoke.test_points(20_000, 2, dev)
     planes, dec = prm["planes"], prm["decoder"]
     _, emb = fc.field_forward(x, planes, dec, *META, return_embed=True)
@@ -60,20 +67,21 @@ def test_backward_kernels_match_plain(card):
     for n in k2[2]:
         for k in ("w", "b"):
             assert chip_smoke._err(k2[2][n][k], r2[2][n][k])[1] < 1e-4
-    d = torch.randn((48, x.shape[1]), generator=gen, device=dev) * 0.1
-    k3 = tc.plane_backward(x, d, planes, 2)
-    r3 = tc.plane_backward_plain(x, d, planes, 2)
+    d = torch.randn((E, x.shape[1]), generator=gen, device=dev) * 0.1
+    k3 = tc.plane_backward(x, d, planes, ns)
+    r3 = tc.plane_backward_plain(x, d, planes, ns)
     for k in k3:
         assert chip_smoke._err(k3[k], r3[k])[1] < 1e-4
-    assert chip_smoke._err(tc.x_backward(x, d, planes, 2),
-                           tc.x_backward_plain(x, d, planes, 2))[1] < 1e-4
+    assert chip_smoke._err(tc.x_backward(x, d, planes, ns),
+                           tc.x_backward_plain(x, d, planes, ns))[1] < 1e-4
 
 
 def test_backward_kernels_match_plain_on_ray_points(card):
     """K2 (with weight gradients and in the GO form without them), K3 and
     K4 on ray-ordered points, where a warp's lanes share cells
     (chip_smoke.ray_points), relative 1e-4."""
-    dev, prm = card
+    dev, prm, META, E = card
+    ns = META[0]
     x = chip_smoke.ray_points(300, 75, 3, dev)
     planes, dec = prm["planes"], prm["decoder"]
     _, emb = fc.field_forward(x, planes, dec, *META, return_embed=True)
@@ -92,33 +100,34 @@ def test_backward_kernels_match_plain_on_ray_points(card):
     assert k2[2] is None
     assert chip_smoke._err(k2[0], r2[0])[1] < 1e-4
     assert chip_smoke._err(k2[1], r2[1])[1] < 1e-4
-    d = torch.randn((48, x.shape[1]), generator=gen, device=dev) * 0.1
-    k3 = tc.plane_backward(x, d, planes, 2)
-    r3 = tc.plane_backward_plain(x, d, planes, 2)
+    d = torch.randn((E, x.shape[1]), generator=gen, device=dev) * 0.1
+    k3 = tc.plane_backward(x, d, planes, ns)
+    r3 = tc.plane_backward_plain(x, d, planes, ns)
     for k in k3:
         assert chip_smoke._err(k3[k], r3[k])[1] < 1e-4
-    assert chip_smoke._err(tc.x_backward(x, d, planes, 2),
-                           tc.x_backward_plain(x, d, planes, 2))[1] < 1e-4
+    assert chip_smoke._err(tc.x_backward(x, d, planes, ns),
+                           tc.x_backward_plain(x, d, planes, ns))[1] < 1e-4
 
 
 def test_k2_k3_give_the_same_bits_every_call(card):
     """K2 (fixed-order partial sums) and K3 (fixed-point integer atomics)
     return bitwise equal results when called twice on ray-ordered points,
     where K3's atomics contend most."""
-    dev, prm = card
+    dev, prm, META, E = card
+    ns = META[0]
     x = chip_smoke.ray_points(300, 75, 4, dev)
     planes, dec = prm["planes"], prm["decoder"]
     _, emb = fc.field_forward(x, planes, dec, *META, return_embed=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     g = torch.randn((10, x.shape[1]), generator=gen, device=dev) * 0.1
-    d = torch.randn((48, x.shape[1]), generator=gen, device=dev) * 0.1
+    d = torch.randn((E, x.shape[1]), generator=gen, device=dev) * 0.1
     a, b = (fc.decoder_backward(x, g, emb, dec, 8, 5) for _ in range(2))
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     for n in a[2]:
         for k in ("w", "b"):
             assert torch.equal(a[2][n][k], b[2][n][k])
-    a, b = (tc.plane_backward(x, d, planes, 2) for _ in range(2))
+    a, b = (tc.plane_backward(x, d, planes, ns) for _ in range(2))
     for k in a:
         assert torch.equal(a[k], b[k])
 
@@ -128,7 +137,8 @@ def test_k1_k4_match_plain_at_ragged_sizes(card, n):
     """K1's three modes (persistent grid, 16-point tiles a warp) and K4
     (32-point blocks, with and without the added d_x_pe) at point counts
     that are no multiple of a tile: relative 2e-5 and 1e-4."""
-    dev, prm = card
+    dev, prm, META, E = card
+    ns = META[0]
     x = chip_smoke.test_points(n, 7, dev)
     planes, dec = prm["planes"], prm["decoder"]
     for mode in ({"return_embed": True}, {}, {"sdf_only": True}):
@@ -139,19 +149,20 @@ def test_k1_k4_match_plain_at_ragged_sizes(card, n):
             assert chip_smoke._err(a, b)[1] < 2e-5
     gen = torch.Generator(device=dev)
     gen.manual_seed(n)
-    d = torch.randn((48, n), generator=gen, device=dev) * 0.1
+    d = torch.randn((E, n), generator=gen, device=dev) * 0.1
     add = torch.randn((3, n), generator=gen, device=dev)
-    assert chip_smoke._err(tc.x_backward(x, d, planes, 2),
-                           tc.x_backward_plain(x, d, planes, 2))[1] < 1e-4
+    assert chip_smoke._err(tc.x_backward(x, d, planes, ns),
+                           tc.x_backward_plain(x, d, planes, ns))[1] < 1e-4
     assert chip_smoke._err(
-        tc.x_backward(x, d, planes, 2, d_x_pe=add),
-        tc.x_backward_plain(x, d, planes, 2, d_x_pe=add))[1] < 1e-4
+        tc.x_backward(x, d, planes, ns, d_x_pe=add),
+        tc.x_backward_plain(x, d, planes, ns, d_x_pe=add))[1] < 1e-4
 
 
 def test_k1_k4_give_the_same_bits_every_call(card):
     """K1 (fixed summation order in registers) and K4 (quad shuffles in a
     fixed order) return bitwise equal results when called twice."""
-    dev, prm = card
+    dev, prm, META, E = card
+    ns = META[0]
     x = chip_smoke.ray_points(300, 75, 5, dev)
     planes, dec = prm["planes"], prm["decoder"]
     for mode in ({"return_embed": True}, {}, {"sdf_only": True}):
@@ -160,51 +171,53 @@ def test_k1_k4_give_the_same_bits_every_call(card):
         assert all(torch.equal(u, v) for u, v in zip(a, b))
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
-    d = torch.randn((48, x.shape[1]), generator=gen, device=dev) * 0.1
+    d = torch.randn((E, x.shape[1]), generator=gen, device=dev) * 0.1
     add = torch.randn((3, x.shape[1]), generator=gen, device=dev)
     for kw in ({}, {"d_x_pe": add}):
-        a, b = (tc.x_backward(x, d, planes, 2, **kw) for _ in range(2))
+        a, b = (tc.x_backward(x, d, planes, ns, **kw) for _ in range(2))
         assert torch.equal(a, b)
 
 
 def test_k1_packed_weights_match_plain_packer(card):
     """The kernel's packer writes exactly what the plain packer (the one
     the CPU tests hold to be a permutation) writes."""
-    dev, prm = card
-    assert torch.equal(fc.pack_decoder_weights(prm["decoder"]),
-                       fc.pack_decoder_weights_plain(prm["decoder"]))
+    dev, prm, META, E = card
+    shape = _build.kernel_shape(prm["planes"], META[0])
+    assert torch.equal(fc.pack_decoder_weights(prm["decoder"], shape),
+                       fc.pack_decoder_weights_plain(prm["decoder"], shape))
 
 
 def test_k1_empty_input(card):
-    dev, prm = card
+    dev, prm, META, E = card
     x = torch.empty((3, 0), device=dev)
     out, emb = fc.field_forward(x, prm["planes"], prm["decoder"], *META,
                                 return_embed=True)
-    assert out.shape == (10, 0) and emb.shape == (48, 0)
-    d = torch.empty((48, 0), device=dev)
-    assert tc.x_backward(x, d, prm["planes"], 2).shape == (3, 0)
+    assert out.shape == (10, 0) and emb.shape == (E, 0)
+    d = torch.empty((E, 0), device=dev)
+    assert tc.x_backward(x, d, prm["planes"], META[0]).shape == (3, 0)
 
 
 def test_encode_kernel_and_op_match_plain(card):
     """K0 against the plain encode (relative 2e-5), and TriplaneEncode's
     plane, CP and x gradients (K3, K4) against autograd of the plain
     encode on interior points (relative 1e-4)."""
-    dev, prm = card
+    dev, prm, META, E = card
+    ns = META[0]
     x = chip_smoke.test_points(20_000, 4, dev).T.contiguous()
     planes = prm["planes"]
-    assert chip_smoke._err(tc.encode_forward(x, planes, 2),
-                           tc.encode_forward_plain(planes, x, 2))[1] < 2e-5
+    assert chip_smoke._err(tc.encode_forward(x, planes, ns),
+                           tc.encode_forward_plain(planes, x, ns))[1] < 2e-5
     xi = chip_smoke.test_points(20_000, 5, dev, inside_only=True).T
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    G = torch.randn((xi.shape[0], 48), generator=gen, device=dev)
+    G = torch.randn((xi.shape[0], E), generator=gen, device=dev)
 
     def grads(fn):
         pl = {k: v.detach().clone().requires_grad_(True)
               for k, v in planes.items()}
         xx = xi.detach().clone().requires_grad_(True)
-        (fn(pl, xx, 2) * G).sum().backward()
-        return [pl[k].grad for k in ("s0", "s1", "cp")] + [xx.grad]
+        (fn(pl, xx, ns) * G).sum().backward()
+        return [pl[k].grad for k in sorted(pl)] + [xx.grad]
 
     for a, b in zip(grads(tc.triplane_encode),
                     grads(tc.encode_forward_plain)):
@@ -214,7 +227,7 @@ def test_encode_kernel_and_op_match_plain(card):
 def test_encode_backward_launches_only_what_is_asked(card):
     """TriplaneEncode's backward launches K3 only when a plane or the CP
     lines need a gradient and K4 only when x does."""
-    dev, prm = card
+    dev, prm, META, E = card
     xi = chip_smoke.test_points(4_096, 6, dev, inside_only=True).T
     planes = {k: v.detach().clone() for k, v in prm["planes"].items()}
     for x_grad, planes_grad, want in ((True, False, (0, 1)),
@@ -223,7 +236,7 @@ def test_encode_backward_launches_only_what_is_asked(card):
         pl = {k: v.clone().requires_grad_(planes_grad)
               for k, v in planes.items()}
         xx = xi.detach().clone().requires_grad_(x_grad)
-        out = tc.triplane_encode(pl, xx, 2)
+        out = tc.triplane_encode(pl, xx, META[0])
         fc.reset_launch_counts()
         out.sum().backward()
         torch.cuda.synchronize()
@@ -231,15 +244,28 @@ def test_encode_backward_launches_only_what_is_asked(card):
 
 
 def test_kernels_raise_on_other_widths(card):
-    """A CUDA tensor launches the kernel or raises: a non-flagship width
-    raises instead of falling back to the plain version."""
-    dev, prm = card
+    """A CUDA tensor launches the kernel or raises: a field shape outside
+    the kernels' table (here the JAX Pallas tests' (16, 32) + CP 64 x 24)
+    raises, naming the shapes the table holds, instead of falling back to
+    the plain version; so do other PE bands and a table shape's planes
+    with another CP width."""
+    dev, prm, META, E = card
     x = chip_smoke.test_points(256, 3, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    small = {"s0": torch.rand((3, 16, 16, 4), generator=gen, device=dev),
+             "s1": torch.rand((3, 32, 32, 4), generator=gen, device=dev),
+             "cp": torch.rand((3, 64, 24), generator=gen, device=dev)}
+    d = torch.zeros((32, x.shape[1]), device=dev)
+    for call in (lambda: fc.field_forward(x, small, prm["decoder"], 2, 8, 5),
+                 lambda: tc.encode_forward(x.T.contiguous(), small, 2),
+                 lambda: tc.plane_backward(x, d, small, 2),
+                 lambda: tc.x_backward(x, d, small, 2)):
+        with pytest.raises(ValueError, match="shapes only"):
+            call()
     planes = dict(prm["planes"])
-    planes["cp"] = planes["cp"][:, :, :32].contiguous()
-    with pytest.raises(ValueError, match="flagship"):
+    planes["cp"] = planes["cp"][:, :, :24].contiguous()
+    with pytest.raises(ValueError, match="shapes only"):
         fc.field_forward(x, planes, prm["decoder"], *META)
     with pytest.raises(ValueError):
-        tc.encode_forward(x.T.contiguous(), planes, 2)
-    with pytest.raises(ValueError):
-        fc.field_forward(x, prm["planes"], prm["decoder"], 2, 4, 5)
+        fc.field_forward(x, prm["planes"], prm["decoder"], META[0], 4, 5)

@@ -190,7 +190,8 @@ def np_bwd_x(x, g, planes):
     against tents, times (R-1), in float64 accumulation."""
     dx = np.zeros((x.shape[0], 3))
     F = planes["s0"].shape[-1]
-    for s in range(2):
+    n_scales = sum(k.startswith("s") for k in planes)
+    for s in range(n_scales):
         P = planes[f"s{s}"].astype(np.float64)
         R = P.shape[1]
         gs = g[:, s * F:(s + 1) * F].astype(np.float64)
@@ -204,7 +205,7 @@ def np_bwd_x(x, g, planes):
             dx[:, b] += dv
     cp = planes["cp"].astype(np.float64)
     Rc = cp.shape[1]
-    gc = g[:, 2 * F:].astype(np.float64)
+    gc = g[:, n_scales * F:].astype(np.float64)
     tents = [_np_tents(_np_coords(x[:, a], Rc), Rc) for a in range(3)]
     fs = [np.einsum("rn,rc->nc", tents[a][0], cp[a]) for a in range(3)]
     ds = [np.einsum("rn,rc->nc", tents[a][1], cp[a]) for a in range(3)]

@@ -6,7 +6,7 @@ fragments and reads the decoder's weights packed in B-fragment order
 (``field_cuda.pack_decoder_weights_plain`` mirrors the kernel's packer).
 Here the packed set is shown to be a permutation of the weights, a numpy
 rendition of the kernel's fragment dataflow (one warp, 16 points, the
-thread-to-value layout of csrc/field_forward.cu) reproduces the JAX
+thread-to-value layout of csrc/field_forward.cuh) reproduces the JAX
 field and the port's plain forward at the flagship widths, and the 3xTF32
 products composed through the whole decoder stay within K1's tolerance.
 K4's plain version takes the PE's share of d_x and returns the sum, and
@@ -23,6 +23,7 @@ import chip_smoke
 from mipsfusion_tpu.models import scene_rep as jsr
 from mipsfusion_tpu_torch.config import FLAGSHIP_ORBIT
 from mipsfusion_tpu_torch.models.decoder import LAYERS
+from mipsfusion_tpu_torch.ops import _build
 from mipsfusion_tpu_torch.ops import field_cuda as fc
 from mipsfusion_tpu_torch.ops import triplane_cuda as tc
 from test_torch_field import (_jax_grads, np_bwd_x, points, small_fcfg,
@@ -32,6 +33,7 @@ from test_torch_tf32_split import split, tf32_rna
 torch.set_num_threads(1)
 
 META = (2, 8, 5)
+FLAG = _build.SHAPES[((32, 64), 4, 384, 40)]
 
 
 @pytest.fixture(scope="module")
@@ -54,12 +56,12 @@ def flat_decoder(dec):
 
 def test_packed_weights_are_a_permutation_of_the_decoder(flagship):
     p, _ = flagship
-    idx = fc.packed_index()
+    idx = fc.packed_index(FLAG)
     flat = flat_decoder(p["decoder"])
     assert idx.shape == (40272,)
     used = idx[idx >= 0]
     assert np.array_equal(np.sort(used), np.arange(flat.numel()))
-    packed = fc.pack_decoder_weights(p["decoder"])       # CPU: the plain one
+    packed = fc.pack_decoder_weights(p["decoder"], FLAG)  # CPU: the plain one
     assert torch.equal(packed[torch.as_tensor(idx >= 0)],
                        flat[torch.as_tensor(used)])
     assert torch.all(packed[torch.as_tensor(idx < 0)] == 0)
@@ -71,7 +73,7 @@ def test_split_is_exact_on_the_packed_weights(flagship):
     """hi + lo == w bit for bit (lo = w - hi is exact in float32), and hi
     has only TF32's 10 mantissa bits."""
     p, _ = flagship
-    w = fc.pack_decoder_weights_plain(p["decoder"])
+    w = fc.pack_decoder_weights_plain(p["decoder"], FLAG)
     hi = tf32_rna(w)
     lo = w - hi
     assert torch.equal(hi + lo, w)
@@ -127,13 +129,15 @@ def _c_to_a(c, relu):
     return np.maximum(a, 0.0) if relu else a
 
 
-def warp_forward(x16, pe16, emb16, packed):
-    """csrc/field_forward.cu for one warp: x16 [16, 3], the plain PE
-    [16, 51] and embed [16, 48] of those points (the kernel computes in
-    each thread exactly the entries read here) -> out [16, 10]."""
+def warp_forward(x16, pe16, emb16, packed, shape=FLAG):
+    """csrc/field_forward.cuh for one warp at a table shape: x16 [16, 3],
+    the plain PE [16, 51] and embed [16, E] of those points (the kernel
+    computes in each thread exactly the entries read here, zeros past the
+    embed's last part) -> out [16, 10]."""
+    kbe = shape.k1_embed_kblocks
     W0, W1 = 0, 7 * 1024
     WS0 = W1 + 16 * 1024
-    WS1 = WS0 + 14 * 1024
+    WS1 = WS0 + (8 + kbe) * 1024
     WR = WS1 + 16 * 64
     B0 = WR + 15 * 64
     B1, BS0, BS1, BR = B0 + 128, B0 + 256, B0 + 384, B0 + 392
@@ -148,11 +152,13 @@ def warp_forward(x16, pe16, emb16, packed):
             pe[kb, :, 2 + q] = pe16[pts[q], 3 + 2 * pair + 1]  # cos
     for q in range(2):
         pe[6, :, q] = np.where(t < 3, x16[pts[q], np.minimum(t, 2)], 0.0)
-    em = np.zeros((6, 32, 4))
-    for i in range(3):
+    em = np.zeros((kbe, 32, 4))
+    emb_pad = np.zeros((16, 8 * kbe))
+    emb_pad[:, :emb16.shape[1]] = emb16
+    for i in range(kbe // 2):
         part = t + 4 * i
         for q in range(2):
-            v = emb16[pts[q][:, None], 4 * part[:, None] + np.arange(4)]
+            v = emb_pad[pts[q][:, None], 4 * part[:, None] + np.arange(4)]
             em[2 * i, :, q], em[2 * i, :, 2 + q] = v[:, 0], v[:, 1]
             em[2 * i + 1, :, q], em[2 * i + 1, :, 2 + q] = v[:, 2], v[:, 3]
     crgb = _narrow(pe, packed, WR + 8 * 64)
@@ -194,7 +200,8 @@ def test_fragment_dataflow_matches_jax_field_and_plain(flagship):
     plain, emb = fc.field_forward_plain(x, p["planes"], p["decoder"], *META,
                                         return_embed=True)
     np.testing.assert_allclose(plain.T.numpy(), ref, rtol=2e-5, atol=2e-5)
-    packed = fc.pack_decoder_weights_plain(p["decoder"]).double().numpy()
+    packed = fc.pack_decoder_weights_plain(p["decoder"],
+                                           FLAG).double().numpy()
     xr = x.T.double()
     from mipsfusion_tpu_torch.ops.encoding import frequency_encode
     pe = torch.cat([xr, frequency_encode(xr, 8)], dim=-1).numpy()

@@ -404,3 +404,34 @@ def test_recon_metrics_match_jax(slice_pair):
     dgt[dgt < 0.5] = 0.0
     assert tr.depth_l1(pred, dgt) == jr.depth_l1(pred, dgt)
     assert tr.mesh_accuracy_vs_sdf(np.zeros((0, 3)), None) == float("inf")
+
+
+def test_mesh_error_split_places_shells_behind_the_walls():
+    """mesh_error_split on vertices placed by hand in the synthetic room
+    (half extents 3, 2.2, 2.5): four on the walls, two 0.3 m behind the
+    +x wall, one 0.02 m inside the floor's plane; the shares and means
+    follow, and the accuracy of all of them is mesh_accuracy_vs_sdf's."""
+    from mipsfusion_tpu_torch.datasets.synthetic import props_on, scene_sdf
+    from mipsfusion_tpu_torch.eval import recon as tr
+    half = np.array([3.0, 2.2, 2.5], np.float32)
+    verts = np.array([[-2.999, 0.0, 0.0], [0.0, 2.199, 0.5],
+                      [0.5, 0.0, -2.499], [0.0, -0.5, 2.499],
+                      [3.3, 0.0, 0.0], [3.3, 1.0, -1.0],
+                      [0.2, -2.18, 1.9]], np.float32)
+    split = tr.mesh_error_split(verts, torch.tensor(half))
+
+    def sdf_fn(p):
+        return scene_sdf(torch.as_tensor(p), torch.tensor(half),
+                         props_on("cpu")).numpy()
+
+    d = np.abs(sdf_fn(verts))
+    assert d[4] == pytest.approx(0.3, abs=1e-5)
+    assert d[5] == pytest.approx(0.3, abs=1e-5)
+    assert split["outside_share"] == pytest.approx(2 / 7)
+    assert split["inside_accuracy_m"] == pytest.approx(
+        float(np.r_[d[:4], d[6]].mean()), abs=1e-7)
+    assert split["inside_accuracy_m"] < 0.01
+    assert split["far_share"] == pytest.approx(2 / 7)
+    assert split["far_mean_m"] == pytest.approx(0.3, abs=1e-5)
+    assert tr.mesh_accuracy_vs_sdf(verts, sdf_fn) == pytest.approx(
+        float(d.mean()), abs=1e-7)

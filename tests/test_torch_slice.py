@@ -2,6 +2,7 @@
 against the JAX tracker on the same params, frame and particle template,
 and short end-to-end runs of MIPSFusionTorch on the synthetic orbit."""
 
+import copy
 import dataclasses
 import os
 import subprocess
@@ -103,6 +104,53 @@ def test_track_frame_matches_jax(track_setup, n_go):
     assert not np.allclose(ref, np.eye(4), atol=1e-6)   # the pose moved
     bound = 1e-5 if n_go == 0 else n_go * 1e-3
     np.testing.assert_allclose(out, ref, atol=bound)
+
+
+def test_tracking_z_ladder_override_matches_jax(monkeypatch):
+    """tracking.n_samples_d / n_range_d override training.* for the tracker
+    alone (the JAX system's fcfg_track): the port builds the same tracking
+    field config as the JAX system from one config, its GO renders every
+    ray with that z-ladder (5 + 3 samples) while the first-frame fit keeps
+    training.* (8 + 7), and one track_frame with it gives the JAX
+    tracker's pose on the same params, frame and PST (no draws: perturb
+    off, the GO ray budget equals the pixel grid)."""
+    from mipsfusion_tpu.slam.system import MIPSFusionTPU
+    n = 4
+    cfg = _triplane(smoke_config(n))
+    cfg["grid"]["hash_size"] = 19              # read (unused) by JAX's config
+    cfg["training"]["perturb"] = 0
+    cfg["tracking"].update(n_samples_d=5, n_range_d=3)
+    jds = JDataset(copy.deepcopy(cfg), n_frames=n, trajectory="orbit",
+                   span=n / 400)
+    jf = MIPSFusionTPU(copy.deepcopy(cfg), dataset=jds).fcfg_track
+    ds = SyntheticDataset(cfg, n_frames=n, trajectory="orbit", span=n / 400,
+                          device="cpu")
+    slam = MIPSFusionTorch(cfg, dataset=ds, device="cpu")
+    assert (jf.n_samples_d, jf.n_range_d) == (5, 3)
+    assert slam.fcfg_track == port_fcfg(jf)
+    assert (slam.fcfg.n_samples_d, slam.fcfg.n_range_d) == (8, 7)
+    seen = []
+    inner = tsr.sample_z_vals
+
+    def spy(target_d, fcfg, generator=None, u=None):
+        z = inner(target_d, fcfg, generator, u)
+        seen.append(z.shape[1])
+        return z
+
+    monkeypatch.setattr(tsr, "sample_z_vals", spy)
+    slam.process_frame(0)                       # the first fit: training.*
+    fit, seen[:] = set(seen), []
+    slam.track(ds.packed(1), 1)
+    assert fit == {15}
+    assert seen == [8] * cfg["tracking"]["iter"]
+    # the pose of one track_frame with the tracking config, both packages
+    frame = np.asarray(jds.packed(1))
+    pst = np.asarray(jtracker.make_pst(jax.random.PRNGKey(3),
+                                       jtracker.ROConfig(particle_size=64)))
+    bound = np.asarray(cfg["mapping"]["bound"], np.float32)
+    setup = (jf, small_params(jf), frame, pst, bound)
+    np.testing.assert_allclose(_track_port(setup, 3), _track_jax(setup, 3),
+                               atol=3e-3)
 
 
 # ------------------------------------------------------------ end to end
