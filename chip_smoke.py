@@ -13,7 +13,9 @@ Phases (any failure raises; the exit code is then non-zero):
                the flagship's [32, 64] + CP 384 x 40, the CP profile's
                [32, 64, 128] + CP 512 x 32, the FastCaMo-large family's
                [32, 64, 128] + CP 384 x 40; labels of the latter two carry
-               "cp:" or "fcl:"), at each shape's loop sizes
+               "cp:" or "fcl:"), at each shape's loop sizes, and the
+               flagship's again at the scale profile's sizes and the
+               stress screen's (labels "snake:")
                (KERNEL_SHAPES; params from a fixed seed, points inside,
                outside and on the edge of [0, 1]^3): max abs / relative
                error beside the tolerance, median times (device time of
@@ -65,7 +67,25 @@ Phases (any failure raises; the exit code is then non-zero):
                launch counts; then the joint mesh at mesh.voxel_final:
                completion@5cm > 0.85 and the accuracy of its vertices
                inside the room < 0.015 m (the whole mesh's accuracy is
-               printed beside the 0.05 m it does not hold).
+               printed beside the 0.05 m it does not hold);
+ 10. scale   - configs/synthetic/snake_fast.yaml as a user runs it (600
+               frames of the snake across the tiled 11 m room and back,
+               localMLP_num 20, the flagship field at full width, seed 0):
+               ATE < 0.20 m, at least 4 submaps and 1 switch back, no
+               submap past the capacity; the manager's wait-loop counts
+               and its stage's p50 / p99 at <= 3 and >= 4 live submaps,
+               FPS, stage times, launches, peak memory;
+ 11. stress  - the JAX package's stress recipe (outback.yaml at full
+               budgets on the fast-motion sweep, 120 frames, one 8 m
+               submap, sensor noise), seed 0: every lever off, then all
+               five on (drift gate 0.03 m, motion prior 1.0, RO escalation
+               4 and screen 96 px / keep 512, keyframe strain mask 2.5)
+               twice, which must repeat bit for bit; ATE (a seed lottery:
+               printed, not held), the gate's armed / fired / rescued
+               frames, pose-gate rejections, escalated frames, strained
+               keyframes, K1's launches at the screen's two sizes; then
+               tests/test_drift_gate.py's injected slips on the card (60 mm
+               and 3 degrees + 36 mm): the gate fires and rescues both.
 The kernels' JSON line comes second to last; the last line is
 {"ok": true, "device": {...}}.
 
@@ -79,6 +99,12 @@ that opens its second submap at that keyframe.
     python3 chip_smoke.py --kernels-only
 
 runs phases 1-4 alone (about a minute and a half).
+
+    python3 chip_smoke.py --scale-only [--scale-trace]
+    python3 chip_smoke.py --stress-only
+
+run phases 1-2 and then phase 10 (with --scale-trace the manager's
+predicates and pose errors at every keyframe) or phase 11 alone.
 """
 
 from __future__ import annotations
@@ -461,9 +487,17 @@ def bound(kind: str, n: int, shape=None):
 # its z-ladder of 24 + 15 = 39 samples): BA (1024 + 400) x 39 = 55,536,
 # GO 512 x 39 = 19,968, the first fit 1024 x 39 = 39,936, RO 1024
 # particles x 12 x 16 px = 196,608 a call (786,432 over a frame's four).
+# The scale profile (snake_fast.yaml) runs the flagship's field with the
+# fast budgets and the same z-ladder of 39 samples: BA 55,536, GO 512 x 39,
+# the first fit, its chunks, refine and switch BA 1024 x 39, RO 196,608 a
+# call; the stress run's screen (flagship budgets) scores 2000 particles on
+# 96 px (192,000) and the 512 it keeps on 384 px (196,608).
 KERNEL_SHAPES = {
     "flag": {"ba": 195_000, "ba_rays": (2600, 75), "go_rays": (1000, 75),
              "fit": 135_000, "ro": 768_000},
+    "snake": {"shape": "flag", "ba": 55_536, "ba_rays": (1424, 39),
+              "go_rays": (512, 39), "fit": 39_936, "ro": 196_608,
+              "ro_screen": 192_000},
     "cp": {"ba": 55_536, "ba_rays": (1424, 39), "go_rays": (512, 39),
            "fit": 39_936, "ro": 196_608, "ro_frame": 786_432},
     "fcl": {"ba": 195_000, "ba_rays": (2600, 75), "go_rays": (1000, 75),
@@ -496,7 +530,7 @@ def kernel_shape_phase(shape_name: str, rows: dict):
     from mipsfusion_tpu_torch.ops import triplane_cuda as tc
     dev = torch.device("cuda")
     sz = KERNEL_SHAPES[shape_name]
-    p = field_params(shape_name, 0, dev)
+    p = field_params(sz.get("shape", shape_name), 0, dev)
     planes, dec = p["planes"], p["decoder"]
     ns = len([k for k in planes if k.startswith("s")])
     shape = _build.kernel_shape(planes, ns)
@@ -589,6 +623,8 @@ def kernel_shape_phase(shape_name: str, rows: dict):
     ro = [("field_forward_sdf", sz["ro"])]
     if "ro_frame" in sz:
         ro.append(("field_forward_sdf@frame", sz["ro_frame"]))
+    if "ro_screen" in sz:
+        ro.append(("field_forward_sdf@screen", sz["ro_screen"]))
     for label, n in ro:
         xr = test_points(n, 2, dev)
         record("field_forward", label, k1_errs(xr, sdf_only=True),
@@ -778,8 +814,9 @@ def phase_autograd():
     same Function on the plain path, on interior points (where the
     composite autodiff path and the kernels' coordinate gradient agree),
     and TriplaneEncode's."""
-    for name in KERNEL_SHAPES:
-        autograd_shape(name)
+    for name, sz in KERNEL_SHAPES.items():
+        if "shape" not in sz:          # once per field shape
+            autograd_shape(name)
 
 
 def autograd_shape(shape_name: str):
@@ -1200,6 +1237,267 @@ def switch_ba_alone(slam, ds):
         _fail(f"switch BA launches {sw}: want K1, K2, K4 and no K3")
 
 
+def _load_yaml(path: str):
+    """The port's load_config on a yaml of configs/, from the repo root
+    (inherit_from resolves against the working directory)."""
+    from mipsfusion_tpu_torch.config import load_config
+    cwd = os.getcwd()
+    os.chdir(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        return load_config(path)
+    finally:
+        os.chdir(cwd)
+
+
+SCALE_ATE = 0.20        # three times the reference's 65.9 mm (BENCH_r05)
+SCALE_MIN_SUBMAPS = 4
+
+
+def phase_scale(trace: bool = False):
+    """The scale profile as a user runs it: configs/synthetic/snake_fast.yaml
+    through the port's load_config and MIPSFusionTorch(cfg, dataset=
+    SyntheticDataset(cfg)).run() on the card, all 600 frames of the snake
+    across the tiled 11 m room and back, seed 0, the manager on with
+    localMLP_num 20, the flagship field [32, 64] x F4 + CP 384 x 40 at full
+    width (RO 4 x 1024 particles x 12 x 16 px, GO 8 x 512 rays and BA 15 x
+    1424 rays at the config's 24 + 15 samples a ray). Fails unless ATE <
+    SCALE_ATE, at least SCALE_MIN_SUBMAPS submaps and one switch back,
+    and no submap past localMLP_num. Prints the manager's wait-loop
+    counts and its stage's p50 / p99 ms at <= 3 and >= 4 live submaps.
+    With ``trace`` the manager's predicates and pose errors print at
+    every keyframe.
+    Returns the run's launch counts."""
+    import torch
+    from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
+    from mipsfusion_tpu_torch.ops import _build
+    from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
+    cfg = _load_yaml("configs/synthetic/snake_fast.yaml")
+    cfg["data"]["output"] = None
+    ds = SyntheticDataset(cfg)
+    slam = MIPSFusionTorch(cfg, dataset=ds)
+    shape = _build.kernel_shape(slam.field.params(detach=True)["planes"],
+                                slam.fcfg.n_scales)
+    if shape.name != "flag" or ds.num_frames != 600 or ds.props != "tiled":
+        _fail(f"scale profile: shape {shape.name}, {ds.num_frames} frames, "
+              f"props {ds.props}")
+    live = []                         # submaps in use at each manager call
+    step = slam._manager_step
+
+    def manager_step(*a):
+        live.append(slam._host_used)
+        return step(*a)
+
+    slam._manager_step = manager_step
+    if trace:
+        trace_outback(slam, ds)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res, counts, wall = _run_path(slam)
+    except RuntimeError as e:
+        if "capacity" in str(e):
+            _fail(f"scale profile: {e}")
+        raise
+    ate = res["absolute_translational_error.rmse"]
+    used = res["n_submaps"]
+    backs = [f for f, flag in slam.switch_events if flag == 1]
+    news = [f for f, flag in slam.switch_events if flag == 3]
+    mgr_ms = np.asarray([a.elapsed_time(b)
+                         for a, b in slam._events["manager"]])
+    live = np.asarray(live[:len(mgr_ms)])
+
+    def pct(sel):
+        if not sel.any():
+            return None
+        return [round(float(np.percentile(mgr_ms[sel], q)), 3)
+                for q in (50, 99)]
+
+    print(f"scale profile: 600 frames  ATE RMSE {ate * 1000:.2f} mm  "
+          f"tracked FPS {res['fps']:.2f}  wall {wall:.1f} s  submaps {used} "
+          f"(new at {news})  switch backs {len(backs)} at {backs}  "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"scale profile manager: wait loop armed "
+          f"{slam.manager.n_wait_armed} matured {slam.manager.n_wait_matured}"
+          f"  stage ms p50/p99 at <= 3 live submaps {pct(live <= 3)} "
+          f"({int((live <= 3).sum())} calls), at >= 4 {pct(live >= 4)} "
+          f"({int((live >= 4).sum())} calls)")
+    print(f"scale profile launches {counts}  stage calls "
+          f"{dict(slam.stage_calls)}")
+    print("scale profile stage ms (CUDA events, mean per call): "
+          + json.dumps({k: round(v, 3) for k, v in slam.stage_ms().items()}))
+    cap = cfg["mapping"]["localMLP_num"]
+    if not ate < SCALE_ATE:
+        _fail(f"scale profile ATE {ate:.4f} m >= {SCALE_ATE} m")
+    if not SCALE_MIN_SUBMAPS <= used <= cap:
+        _fail(f"scale profile: {used} submaps, want {SCALE_MIN_SUBMAPS}-{cap}")
+    if not backs:
+        _fail("scale profile: no switch back")
+    return counts
+
+
+# sensor noise of the stress runs (tests/test_sensor_noise.py's profile)
+STRESS_NOISE = {"depth_sigma": [0.005, 0.003], "dropout": 0.02,
+                "quantize": 0.001, "rgb_sigma": 0.01}
+STRESS_FRAMES = 120
+
+
+def stress_config(levers: bool, seed: int = 0):
+    """The JAX package's stress recipe (tools/ab_fullbudget.py run_stress):
+    configs/synthetic/outback.yaml at full budgets on the fast-motion sweep,
+    120 frames, one 8 m submap extent, with sensor noise; ``levers``: all
+    five robustness levers on."""
+    cfg = _load_yaml("configs/synthetic/outback.yaml")
+    cfg["data"]["output"] = None
+    cfg["seed"] = seed
+    cfg["synthetic"].update(trajectory="sweep", n_frames=STRESS_FRAMES,
+                            noise=dict(STRESS_NOISE))
+    cfg["mapping"]["localMLP_max_len"] = [8.0, 8.0, 8.0]
+    if levers:
+        t = cfg["tracking"]
+        t["drift_gate"] = {"thresh": 0.03}
+        t["motion_prior_w"] = 1.0
+        t["RO"].update(escalate=4.0, screen_px=96, screen_keep=512)
+        cfg["mapping"]["kf_strain_mask"] = 2.5
+    return cfg
+
+
+def run_stress(levers: bool, label: str):
+    """One stress run on the card; prints its ATE and the levers' counts
+    and returns (slam, launch counts, K1's sdf-only launches by size)."""
+    import torch
+    from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
+    cfg = stress_config(levers)
+    slam = MIPSFusionTorch(cfg, dataset=SyntheticDataset(cfg))
+    res, counts, wall = _run_path(slam)
+    sdf_by_n = dict(fc.field_forward.sdf_launches_by_n)
+
+    tc = slam.track_counts()
+    if slam.dgcfg is not None:
+        # the gate's fires frame by frame: how many follow a rescued frame
+        # (whose prediction is the previous pose, not constant velocity),
+        # and the lengths of the runs of consecutive fires
+        flags = torch.stack([torch.stack([r.fired, r.rescued])
+                             for r in slam.track_log]).cpu().numpy()
+        fired, rescued = flags[:, 0], flags[:, 1]
+        after = int((fired[1:] & rescued[:-1]).sum())
+        runs, n = [], 0
+        for f in list(fired) + [False]:
+            if f:
+                n += 1
+            elif n:
+                runs.append(n)
+                n = 0
+        print(f"stress {label} gate: fires {int(fired.sum())}, on a frame "
+              f"after a rescue {after}, runs of consecutive fires "
+              f"{sorted(runs, reverse=True)}")
+    print(f"stress {label}: {STRESS_FRAMES} sweep frames, noise, seed 0  "
+          f"ATE RMSE {res['absolute_translational_error.rmse'] * 1000:.2f} mm"
+          f"  tracked FPS {res['fps']:.2f}  wall {wall:.1f} s  submaps "
+          f"{res['n_submaps']}  frames: gate armed {tc['armed']} fired "
+          f"{tc['fired']} rescued {tc['rescued']}, pose-gate rejections "
+          f"{tc['rejected']}, escalated {tc['escalated']}  strained "
+          f"keyframes {int(sum(bool(k) for k in slam.kf_strained))}  K1 "
+          f"sdf-only launches by points {sdf_by_n}")
+    print(f"stress {label} launches {counts}  stage ms "
+          + json.dumps({k: round(v, 3) for k, v in slam.stage_ms().items()}))
+    return slam, counts, sdf_by_n
+
+
+def stress_slips():
+    """tests/test_drift_gate.py's injected slips on the card: an anchor
+    from frame 0 of a 60 x 80 orbit, frame 5 at its ground truth times the
+    slip, RO and GO at 0 iterations; the gate must fire and rescue the
+    60 mm slip to under a quarter of it (reading < 20 mm) and the 3 degree
+    + 36 mm slip to under 1 degree."""
+    import torch
+    from mipsfusion_tpu_torch.config import FLAGSHIP_ORBIT
+    from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
+    from mipsfusion_tpu_torch.models import scene_rep as sr
+    from mipsfusion_tpu_torch.slam import tracker
+    dev = torch.device("cuda")
+    cfg = {"cam": {"H": 60, "W": 80, "fx": 40.0, "fy": 40.0, "cx": 39.5,
+                   "cy": 29.5, "far": 8.0}, "data": {"downsample": 1},
+           "synthetic": {"room_half": [3.0, 2.2, 2.5]}}
+    ds = SyntheticDataset(cfg, n_frames=8, trajectory="orbit",
+                          span=8 / 200.0, device=dev)
+    pts, nrm, valid = tracker.gate_anchor(ds.packed(0), 24, 43)
+    fcfg = sr.FieldConfig.from_dict(FLAGSHIP_ORBIT)
+    params = field_params("flag", 0, dev)
+    gt = ds.gt_pose(5)
+
+    def slip(deg, t):
+        a = np.radians(deg)
+        T = np.eye(4)
+        T[0, 0] = T[2, 2] = np.cos(a)
+        T[0, 2], T[2, 0] = np.sin(a), -np.sin(a)
+        T[:3, 3] = t
+        return gt @ T
+
+    for name, slipped in (("60 mm", slip(0.0, [0.06, 0.0, 0.0])),
+                          ("3 deg + 36 mm", slip(3.0, [0.02, 0.0, -0.03]))):
+        est = torch.eye(4, device=dev).repeat(16, 1, 1)
+        est[0] = torch.as_tensor(ds.gt_pose(0), device=dev)
+        est[4] = est[5] = torch.as_tensor(slipped, dtype=torch.float32,
+                                          device=dev)
+        f = ds.packed(5)
+        res = tracker.track_frame(
+            params, fcfg, sr.FieldConsts.from_norm_factor(
+                torch.tensor([3.0, 3.0, 3.0], device=dev)),
+            tracker.ROConfig(particle_size=8, n_rows=4, n_cols=6, n_iters=0),
+            tracker.GOConfig(n_iters=0, n_rays=64),
+            torch.zeros((8, 6), device=dev), None, f[..., 3:6], f[..., 6],
+            f[..., :3], est, 5, False, sr.LossWeights(), 0, 0,
+            torch.tensor(-1.0, device=dev),
+            dgcfg=tracker.DriftGateConfig(thresh=0.02, polish=False),
+            gate=tracker.GateAnchor(pts, nrm, valid, torch.tensor(
+                0, device=dev)))
+        pose = res.pose.cpu().numpy()
+        err_before = float(np.linalg.norm(slipped[:3, 3] - gt[:3, 3]))
+        err_after = float(np.linalg.norm(pose[:3, 3] - gt[:3, 3]))
+        R = pose[:3, :3] @ gt[:3, :3].T
+        ang = float(np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2,
+                                                 -1, 1))))
+        print(f"stress injected slip {name}: fired {bool(res.fired)} rescued "
+              f"{bool(res.rescued)}  reading {float(res.drift_res) * 1000:.2f}"
+              f" mm  position error {err_before * 1000:.1f} -> "
+              f"{err_after * 1000:.2f} mm  rotation error {ang:.3f} deg")
+        if not (bool(res.fired) and bool(res.rescued)
+                and float(res.drift_res) < 0.02):
+            _fail(f"injected slip {name}: the gate did not rescue it")
+        if name == "60 mm" and not err_after < 0.25 * err_before:
+            _fail(f"injected slip {name}: {err_after:.4f} m left")
+        if name != "60 mm" and not ang < 1.0:
+            _fail(f"injected slip {name}: {ang:.3f} deg left")
+
+
+def phase_stress():
+    """The fast-motion stress scene at full budgets (stress_config), seed
+    0: (a) every lever off, (b) all five on, (b) again, which must give the
+    same poses bit for bit; then the injected slips. Its ATE is a seed
+    lottery (the JAX run read 22.5 / 377.6 / 436.8 mm on seeds 0-2), so
+    the phase holds the mechanism and prints the ATE. Returns the launch
+    counts of (a) and (b)."""
+    import torch
+    _, off_counts, off_by_n = run_stress(False, "(a) levers off")
+    b, on_counts, on_by_n = run_stress(True, "(b) levers on")
+    b2, _, _ = run_stress(True, "(b) again")
+    same("stress (b) run twice", (b.state.est_c2w, b.state.est_c2w_rel),
+         (b2.state.est_c2w, b2.state.est_c2w_rel))
+    # the screen's two stages: every particle on 96 pixels, then the 512
+    # best on the 384-pixel grid (the plain search: 2000 x 384)
+    if set(on_by_n) != {2000 * 96, 512 * 384} or set(off_by_n) != {
+            2000 * 384}:
+        _fail(f"stress: K1 sdf-only sizes {on_by_n} with the screen, "
+              f"{off_by_n} without")
+    if not b.track_counts()["armed"]:
+        _fail("stress (b): the drift gate never armed")
+    if torch.stack([r.ss_scale for r in b.track_log]).min() < 1.0:
+        _fail("stress (b): an escalation factor below 1")
+    stress_slips()
+    return off_counts, on_counts
+
+
 # The outback's seeds. A run is reproducible, so a seed fixes its branch of
 # the manager's decisions; some seeds return to a previous submap's region
 # and open a new submap instead of switching back, where the
@@ -1360,10 +1658,30 @@ def main(argv=None):
     ap.add_argument("--kernels-only", action="store_true",
                     help="phases 1-4 only: build, every kernel against its "
                          "plain version with times, the autograd paths")
+    ap.add_argument("--scale-only", action="store_true",
+                    help="phases 1-2, then only phase 10 (the scale profile)")
+    ap.add_argument("--scale-trace", action="store_true",
+                    help="with --scale-only: print the manager's predicates "
+                         "and pose errors at every keyframe")
+    ap.add_argument("--stress-only", action="store_true",
+                    help="phases 1-2, then only phase 11 (the stress runs "
+                         "and the injected slips)")
     args = ap.parse_args(argv)
     if args.outback_seeds is not None:
         outback_seeds([int(s) for s in args.outback_seeds.split(",")],
                       args.outback_spawn)
+        return 0
+    if args.scale_only or args.stress_only:
+        phase_device()
+        phase_build(check_hmma=False)
+        from mipsfusion_tpu_torch.ops import field_cuda as fc
+        if args.scale_only:
+            print(json.dumps({"launches_scale": phase_scale(
+                trace=args.scale_trace)}))
+        else:
+            off, on = phase_stress()
+            print(json.dumps({"launches_stress": on,
+                              "launches_stress_off": off}))
         return 0
     phase_device()
     phase_build()
@@ -1385,14 +1703,18 @@ def main(argv=None):
     by_seed, counts, mesh_counts = phase_outbacks()
     phase_cli()
     cp_counts, cp_mesh_counts = phase_cp_profile()
+    scale_counts = phase_scale()
+    stress_off, stress_counts = phase_stress()
     # K0 has no SLAM caller (as triplane_encode_pallas has none in the JAX
     # package): no loop may launch it
-    k0_loops = [orbit_counts["encode_forward"],
-                cp_counts["encode_forward"]] + [
+    k0_loops = [orbit_counts["encode_forward"], cp_counts["encode_forward"],
+                scale_counts["encode_forward"],
+                stress_off["encode_forward"],
+                stress_counts["encode_forward"]] + [
         c["encode_forward"] for c in by_seed.values()]
     if any(k0_loops):
-        _fail(f"K0 launched by a SLAM loop (orbit, cp profile, outbacks): "
-              f"{k0_loops}")
+        _fail(f"K0 launched by a SLAM loop (orbit, cp profile, scale, "
+              f"stress off and on, outbacks): {k0_loops}")
     kernels = []
     for name, r in rows.items():
         on_path = name in SLAM_KERNELS
@@ -1411,12 +1733,18 @@ def main(argv=None):
             # the CP profile's run (kernels at the cp shape) and its mesh
             "launches_cp_profile": cp_counts[name],
             "launches_cp_profile_mesh": cp_mesh_counts[name],
+            # the scale profile's run (snake_fast.yaml, 600 frames) and
+            # the stress runs with every lever on and with none
+            "launches_scale": scale_counts[name],
+            "launches_stress": stress_counts[name],
+            "launches_stress_off": stress_off[name],
             "slam_caller": on_path,
             "max_abs_err": r["max_abs_err"],
             # "ms", "plain_ms" and the bound at the first shape measured
             # (the flagship's BA batch, 195,000 uniform points); every
             # label's numbers ride beside them, the cp and fcl shapes'
-            # under "cp:" and "fcl:" labels
+            # under "cp:" and "fcl:" labels, the flagship's at the scale
+            # profile's and the stress screen's sizes under "snake:"
             "ms": next(iter(r["ms"].values())),
             "ms_idle_launch": next(iter(r["ms_idle_launch"].values())),
             "plain_ms": next(iter(r["plain_ms"].values())),

@@ -14,14 +14,13 @@ from typing import Dict
 
 def get_dataset(config: Dict, device=None):
     """The dataset ``config["dataset"]`` names, on ``device`` (None: the
-    card; ``"cpu"`` for a CPU run)."""
+    card; ``"cpu"`` for a CPU run). The synthetic scene reads its whole
+    ``synthetic:`` block (frames, trajectory, span, props, noise,
+    ``noise_seed``), as the JAX package's does."""
     name = config["dataset"]
     if name == "synthetic":
         from .synthetic import SyntheticDataset
-        syn = config.get("synthetic", {})
-        return SyntheticDataset(config, n_frames=syn.get("n_frames", 200),
-                                trajectory=syn.get("trajectory", "orbit"),
-                                span=syn.get("span", 1.0), device=device)
+        return SyntheticDataset(config, device=device)
     if name in ("replica", "scannet", "fastcamo_synth", "fastcamo_large"):
         raise NotImplementedError(
             f"dataset {name!r}: the file readers decode PNG/JPG frames and "

@@ -204,10 +204,16 @@ def field_forward(xT: torch.Tensor, planes: Dict[str, torch.Tensor],
         _build.stream())
     _build.check(err, "field_forward")
     field_forward.launches += 1
+    if sdf_only:
+        field_forward.sdf_launches_by_n[N] = \
+            field_forward.sdf_launches_by_n.get(N, 0) + 1
     return (out, embed) if return_embed else out
 
 
 field_forward.launches = 0
+# K1's sdf-only launches by point count (RO's queries; the screen's two
+# stages differ in size)
+field_forward.sdf_launches_by_n = {}
 
 
 # ----------------------------------------------------------------- K2 ----
@@ -355,6 +361,7 @@ KERNEL_WRAPPERS = {
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    field_forward.sdf_launches_by_n = {}
 
 
 def launch_counts() -> Dict[str, int]:

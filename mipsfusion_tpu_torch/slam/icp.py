@@ -4,9 +4,9 @@ Port of ``mipsfusion_tpu/slam/icp.py``: normals by k-nearest-neighbour PCA
 (one batched 3x3 ``eigh``), brute-force nearest neighbours over the full
 [N, M] distance matrix (the clouds are a few thousand subsampled keyframe
 points), and a fixed number of Gauss-Newton steps with masked
-correspondences, undamped unless asked. The outputs mirror the open3d
-contract the reference consumes: the rigid transform and the count of
-inliers within the threshold.
+correspondences, undamped and unweighted unless asked. The outputs
+mirror the open3d contract the reference consumes: the rigid transform
+and the count of inliers within the threshold.
 """
 
 from __future__ import annotations
@@ -61,7 +61,8 @@ def icp_point_to_plane(src: torch.Tensor, src_valid: torch.Tensor,
                        dst: torch.Tensor, dst_valid: torch.Tensor,
                        dst_normals: torch.Tensor, threshold: float,
                        n_iters: int = 20,
-                       rel_damping: float = 0.0) -> ICPResult:
+                       rel_damping: float = 0.0,
+                       robust_delta: float = 0.0) -> ICPResult:
     """Register src [N, 3] onto dst [M, 3] minimizing the point-to-plane
     error over nearest-neighbour correspondences within ``threshold``.
     The residual does not depend on a normal's sign.
@@ -70,7 +71,12 @@ def icp_point_to_plane(src: torch.Tensor, src_valid: torch.Tensor,
     equations' own scale (lambda = rel_damping * tr(H) / 6), as the JAX
     function's argument of that name: a direction the correspondences
     barely constrain (sliding along the scene's dominant planes) then
-    takes almost no step instead of wandering on noise."""
+    takes almost no step instead of wandering on noise.
+
+    ``robust_delta`` > 0 weights each correspondence by the Cauchy factor
+    1 / (1 + (r / delta)^2) of its plane residual r, as the JAX function
+    does: occlusion boundaries and depth edges then cannot drag the solve.
+    At 0 (the loop-closure ICP) the solve is the unweighted one."""
     T = torch.eye(4, dtype=src.dtype, device=src.device)
     eye6 = torch.eye(6, dtype=src.dtype, device=src.device)
     for _ in range(n_iters):
@@ -79,6 +85,8 @@ def icp_point_to_plane(src: torch.Tensor, src_valid: torch.Tensor,
         w = (src_valid & (dmin < threshold)).to(src.dtype)
         n = dst_normals[j]
         r = ((p - dst[j]) * n).sum(-1)
+        if robust_delta > 0.0:
+            w = w / (1.0 + (r / robust_delta) ** 2)
         J = torch.cat([n, torch.linalg.cross(p, n)], dim=-1)     # [N, 6]
         Jw = J * w[:, None]
         H = Jw.T @ J

@@ -286,6 +286,10 @@ class Manager:
         self.wait_loop = False
         self.localMLP_Id_wait = -1
         self.localMLP_Id_actual = -1
+        # how often the wait loop was armed (case 5.2) and matured (a
+        # switch back from its re-check)
+        self.n_wait_armed = 0
+        self.n_wait_matured = 0
         # overlap data of the last successful switch trigger
         self.ovlp_data: Optional[Dict] = None
         # (kf_id, (first, second)) of the binding each msg wrote, so the
@@ -438,6 +442,7 @@ class Manager:
         self.wait_loop = True
         self.localMLP_Id_wait = mo_id
         self.localMLP_Id_actual = new_id
+        self.n_wait_armed += 1
         return st, flag
 
     def _process_wait_loop(self, st: SlamState, depth, rays_d, pose_local,
@@ -455,6 +460,7 @@ class Manager:
                                overlap_args):
             return self._process_normal(st, depth, rays_d, pose_local,
                                         frame_id, kf_id, force, pred=pred)
+        self.n_wait_matured += 1
         return self._apply_msg1(st, kf_id, pred["fr_center"],
                                 pred["fr_len"], active_id,
                                 self.localMLP_Id_wait, True,

@@ -45,8 +45,6 @@ class MapConfig:
     @staticmethod
     def from_dict(cfg: dict) -> "MapConfig":
         m = cfg["mapping"]
-        if float(m.get("kf_strain_mask", 0.0)):
-            raise NotImplementedError("mapping.kf_strain_mask is not ported")
         return MapConfig(
             sample=m["sample"], pixels_cur=m["pixels_cur"],
             iters=m["iters"], first_iters=m["first_iters"],

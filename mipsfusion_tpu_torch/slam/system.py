@@ -25,8 +25,14 @@ end the trajectory, ``ckpt_final`` and ``mesh_final.ply`` with its
 accuracy and completion on a synthetic scene. A meshing failure raises
 (the JAX package prints it and carries on).
 
-Left out (later slices): the drift gate, the RO levers, the SDF-
-consistency global BA, sharded refinement.
+The robustness levers, all off by default: the RO screen and escalation
+and the GO motion prior (``slam/tracker.py``), the drift gate with its
+anchor armed on the first frame, refreshed by the tracker and disarmed on
+a switch, a PGO or a resume, and ``mapping.kf_strain_mask`` (a keyframe
+tracked under strain stores zero depth).
+
+Left out (later slices): the SDF-consistency global BA, sharded
+refinement.
 
 Randomness: one ``torch.Generator`` per stage, reseeded from (config seed,
 stage, frame index or call count) at each use, so a run is reproducible
@@ -57,7 +63,7 @@ from . import state as slam_state
 from .state import SlamState
 
 _STAGE_SEED = {"track": 1, "ba": 2, "init": 3, "refine": 4, "switch": 5,
-               "render": 6}
+               "render": 6, "polish": 7}
 
 # Relative damping of the loop-closure ICP (icp_point_to_plane). The JAX
 # package solves undamped; on the flagship outback's forced switch back
@@ -333,9 +339,14 @@ class MIPSFusionTorch:
         self.fcfg_track = dataclasses.replace(self.fcfg, **tz)
         self.rcfg = tracker.ROConfig.from_dict(config)
         self.gcfg = tracker.GOConfig.from_dict(config)
+        self.dgcfg: Optional[tracker.DriftGateConfig] = \
+            tracker.DriftGateConfig.from_dict(config)
+        if self.dgcfg.thresh <= 0.0:
+            self.dgcfg = None                 # the gate off
         self.mcfg = mapper.MapConfig.from_dict(config)
         self.lw = sr.LossWeights.from_dict(config)
         self.keyframe_every = m["keyframe_every"]
+        self.kf_strain_mask = float(m.get("kf_strain_mask", 0.0))
         self.map_every = m["map_every"]
 
         n_frames = dataset.num_frames
@@ -413,9 +424,23 @@ class MIPSFusionTorch:
         self._host_kf_bind = np.full((n_kf, 2), -1, np.int64)
         self._last_tracked_frame = 0
 
-        self.track_losses = []
         self.switch_events: List[Tuple[int, int]] = []   # (frame, flag)
         self._loss_ewma = torch.full((), -1.0, device=self.device)
+        # the previous frame's loss: RO's escalation signal and the strain
+        # mask's (-1: none since the last switch)
+        self._prev_loss = torch.full((), -1.0, device=self.device)
+        # per tracked frame the tracker's result without its anchor (device
+        # tensors, no host sync: the pose gate's verdict, the drift gate's
+        # reading and whether it was armed, fired and rescued, RO's
+        # search-size factor); with the strain mask each keyframe's verdict
+        self.track_log: List[tracker.TrackResult] = []
+        self.kf_strained: List[torch.Tensor] = []
+        # the drift gate's anchor (disarmed until the first frame arms it)
+        # and the motion-model suppressor after a rescue
+        self._gate = (tracker.disarmed_anchor(self.dgcfg, self.device)
+                      if self.dgcfg is not None else None)
+        self._prev_rescued = torch.zeros((), dtype=torch.bool,
+                                         device=self.device)
         # CUDA event pairs per stage (no host sync while the loop runs)
         self._events = defaultdict(list)
         self.stage_calls = defaultdict(int)
@@ -463,9 +488,48 @@ class MIPSFusionTorch:
         return {k: float(np.mean([a.elapsed_time(b) for a, b in v]))
                 for k, v in self._events.items()}
 
+    @property
+    def track_losses(self) -> List[torch.Tensor]:
+        """Each tracked frame's loss (device scalars)."""
+        return [r.loss for r in self.track_log]
+
     def _reset_loss_regime(self):
-        """A switch changes the loss distribution: unseed the pose gate."""
+        """A switch changes the loss distribution: unseed the pose gate and
+        forget the previous loss."""
         self._loss_ewma = torch.full((), -1.0, device=self.device)
+        self._prev_loss = torch.full((), -1.0, device=self.device)
+
+    def track_counts(self) -> Dict[str, int]:
+        """Tracked frames, and those the pose gate rejected, the drift
+        gate was armed on, fired on and rescued, and RO escalated its
+        search on (reads the device once)."""
+        log = self.track_log
+        if not log:
+            return {}
+        flags = torch.stack([torch.stack([
+            ~r.accepted, r.armed, r.fired, r.rescued, r.ss_scale > 1.0])
+            for r in log]).sum(0).tolist()
+        return dict(zip(("frames", "rejected", "armed", "fired", "rescued",
+                         "escalated"), [len(log)] + flags))
+
+    def _gate_anchor_update(self, packed: torch.Tensor, i: int):
+        """Arm the drift gate's anchor from frame i (the first frame; the
+        tracker refreshes it after that)."""
+        if self.dgcfg is None:
+            return
+        pts, normals, valid = tracker.gate_anchor(
+            packed, self.dgcfg.anchor_rows, self.dgcfg.anchor_cols)
+        self._gate = tracker.GateAnchor(
+            pts, normals, valid,
+            torch.full((), i, dtype=torch.int64, device=self.device))
+
+    def _gate_disarm(self):
+        """Disarm the anchor after a switch, a PGO or a resume: est_c2w is
+        re-expressed and the anchor's frame pose no longer fits its cloud
+        (the next tracked frame re-arms it)."""
+        if self.dgcfg is not None:
+            self._gate = self._gate._replace(kf_frame=torch.full(
+                (), -1, dtype=torch.int64, device=self.device))
 
     # ------------------------------------------------------------------
     # stages
@@ -494,19 +558,35 @@ class MIPSFusionTorch:
             self.consts, self.mcfg, self.lw, n_iters, self.mcfg.sample,
             self._generator("init", 0))
         slam_state.add_keyframe(st, packed, 0, self.kf_rows, self.kf_cols)
+        self._gate_anchor_update(packed, 0)
 
     def track(self, packed: torch.Tensor, i: int):
         # constant-velocity prediction from the second frame after a
         # switch on (a switch re-expresses poses in another local frame)
         use_cs = bool(self.config["tracking"]["const_speed"]
                       and (i - self.state.last_switch_frame) >= 2)
+        # the levers' inputs, only where a lever is on
+        gate_on = self.dgcfg is not None
+        levers = {}
+        if self.rcfg.escalate > 0.0:
+            levers["prev_loss"] = self._prev_loss
+        if gate_on:
+            levers.update(dgcfg=self.dgcfg, gate=self._gate,
+                          prev_rescued=self._prev_rescued,
+                          polish_generator=self._generator("polish", i))
         res = tracker.track_frame_update(
             self.field.params(detach=True), self.fcfg_track, self.consts,
             self.rcfg, self.gcfg, self.pst, self._generator("track", i),
             packed, self.state, i, use_cs, self.lw, self.rcfg.n_iters,
-            self.gcfg.n_iters, self.keyframe_every, self._loss_ewma)
+            self.gcfg.n_iters, self.keyframe_every, self._loss_ewma,
+            **levers)
         self._loss_ewma = res.loss_ewma
-        self.track_losses.append(res.loss)
+        self._prev_loss = res.loss
+        # overwritten on every frame, as the JAX system does (ADVICE.md)
+        self._prev_rescued = res.rescued
+        if gate_on:
+            self._gate = res.gate
+        self.track_log.append(res._replace(gate=None))
 
     def do_local_ba(self, packed: torch.Tensor, i: int):
         """Local BA on the active submap and the pose write-back."""
@@ -530,6 +610,17 @@ class MIPSFusionTorch:
             st.est_c2w[i] = qt_to_matrix(res.cur_quat, res.cur_trans)
 
     def add_keyframe(self, packed: torch.Tensor, i: int):
+        if self.kf_strain_mask > 0.0:
+            # a keyframe tracked under strain (loss over kf_strain_mask x
+            # the accepted-loss EWMA, the pose gate's signal) stores zero
+            # depth, inert in every loss, so a slipped pose cannot train
+            # itself into BA and refine; it still exists for the manager
+            strained = (self._loss_ewma > 0.0) & (
+                self._prev_loss > self.kf_strain_mask * self._loss_ewma)
+            self.kf_strained.append(strained)
+            keep = torch.where(strained, 0.0, 1.0)
+            packed = torch.cat([packed[..., :6], packed[..., 6:7] * keep],
+                               dim=-1)
         slam_state.add_keyframe(self.state, packed, i, self.kf_rows,
                                 self.kf_cols)
         kf_id = i // self.keyframe_every
@@ -563,6 +654,7 @@ class MIPSFusionTorch:
         self._host_used = max(self._host_used, new_id + 1)
         self.state.last_switch_frame = i
         self._reset_loss_regime()
+        self._gate_disarm()
         rays = packed.reshape(-1, 7)
         total = self.mcfg.first_iters
         if 0 < self.init_chunk < total:
@@ -609,6 +701,7 @@ class MIPSFusionTorch:
             self.state, i, self.rectified_local_pose, back_id)
         self.optim_cur = True
         self._reset_loss_regime()
+        self._gate_disarm()
 
     def local_ba_switch(self, packed: torch.Tensor, kf_id: int, i: int):
         """Pose-only BA of the loop keyframe against the switched-to
@@ -762,6 +855,8 @@ class MIPSFusionTorch:
         self._timed("pgo", global_pgo, self.state, self.temp_local_pose,
                     self.rectified_local_pose, int(ids[0]), int(ids[1]),
                     self._host_used, self.key_edge_weight)
+        # the PGO rewrote the frame poses: the anchor's pose is stale
+        self._gate_disarm()
 
     # ------------------------------------------------------------------
     # main loop
@@ -827,8 +922,7 @@ class MIPSFusionTorch:
         ckpt_every = mesh_cfg.get("ckpt_freq", 0)
         mesh_every = mesh_cfg.get("mesh_freq", 0)
         out = self.output_dir
-        for j in range(start, n):
-            self.dataset.packed(j)
+        self.dataset.prerender(range(start, n))      # a batch at a time
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.time()
@@ -838,7 +932,7 @@ class MIPSFusionTorch:
                 self.render_debug_images(i)
             if verbose and i % 25 == 0 and i > 0:
                 print(f"frame {i}/{n}  track_loss="
-                      f"{float(self.track_losses[-1]):.4f}  submap="
+                      f"{float(self.track_log[-1].loss):.4f}  submap="
                       f"{self.active_id}  "
                       f"{(i - start) / (time.time() - t0):.2f} fps")
             if out and vis_every and i > 0 and i % vis_every == 0:
@@ -986,6 +1080,7 @@ class MIPSFusionTorch:
         self._pending_init_rays = None
         self._pending_switch = None
         self._reset_loss_regime()
+        self._gate_disarm()
         return last_frame + 1
 
     def request_mesh(self, frame_id: int) -> None:
