@@ -59,7 +59,11 @@ Phases (any failure raises; the exit code is then non-zero):
                configs/synthetic/orbit.yaml (30 frames, a checkpoint at
                frame 15), then again with --resume <out>/ckpt_15: each
                exits 0 with ATE < 0.02 m and leaves its trajectory,
-               checkpoints, render panel and mesh_final.ply;
+               checkpoints, render panel and mesh_final.ply; then the
+               port's eval_ate tool (python3 -m
+               mipsfusion_tpu_torch.tools.eval_ate) on the CLI's
+               trajectory and the scene's ground truth must print the
+               CLI's ATE within 1e-6 m;
   9. cp profile - configs/synthetic/orbit_fast_cp.yaml as a user runs it
                (the port's load_config, MIPSFusionTorch(cfg, dataset=
                SyntheticDataset(cfg)).run(), 200 frames, the manager as
@@ -85,7 +89,27 @@ Phases (any failure raises; the exit code is then non-zero):
                frames, pose-gate rejections, escalated frames, strained
                keyframes, K1's launches at the screen's two sizes; then
                tests/test_drift_gate.py's injected slips on the card (60 mm
-               and 3 degrees + 36 mm): the gate fires and rescues both.
+               and 3 degrees + 36 mm): the gate fires and rescues both;
+ 12. hash    - phase 5's orbit (45 frames, the same budgets) on the
+               reference's HashGrid field at base.yaml's width (16 levels
+               x 2 features, 2^19 rows, base 16 to 256; plain torch, as in
+               the JAX package, which has no kernel for it): the hash
+               backward at BA's 195,000 points the same bits twice; ATE <
+               0.02 m, 1 submap, K0-K4 launched 0 times, the same poses
+               and field over the whole run twice; its mesh at 3 cm with
+               the accuracy of its vertices inside the room < 0.015 m, the
+               same after a checkpoint and resume; FPS, stage ms, peak
+               memory;
+ 13. consistency - the flagship outback (phase 6's config, 200 frames,
+               the first seed of phase 6 that closed a loop) with
+               mapping.global_BA.sdf_consistency: at least one PGO
+               followed by a consistency stage with an overlapping pair,
+               anchor 0 unchanged and a free anchor moved in every stage,
+               ATE < 0.03 m; inside the stages K1, K2 (never with weight
+               gradients) and K4 launch, K3 never; then K1 with the embed,
+               K2 without weight gradients and K4 with d_x_pe at the
+               stage's per-submap point counts against their plain
+               versions (labels "consistency:").
 The kernels' JSON line comes second to last; the last line is
 {"ok": true, "device": {...}}.
 
@@ -105,6 +129,12 @@ runs phases 1-4 alone (about a minute and a half).
 
 run phases 1-2 and then phase 10 (with --scale-trace the manager's
 predicates and pose errors at every keyframe) or phase 11 alone.
+
+    python3 chip_smoke.py --hash-only
+    python3 chip_smoke.py --consistency-only
+
+run phases 1-2 and then phase 12, or phase 13 at seed 0 with its kernel
+labels, alone.
 """
 
 from __future__ import annotations
@@ -542,34 +572,8 @@ def kernel_shape_phase(shape_name: str, rows: dict):
           f"{shape.cp_components}, embed {E}")
 
     def record(name, label, errs, fn, plain_ms, n, kind=None):
-        """errs: {output name: (max abs error, relative error)}; fn: the
-        kernel's call, timed here both ways."""
-        label = pre + label
-        ms, idle_ms = _time_ms(fn), _time_idle_ms(fn)
-        part, (worst_abs, worst) = max(errs.items(), key=lambda kv: kv[1][1])
-        tol = TOL[name]
-        b_ms, b_by = bound(kind or name, n, shape)
-        print(f"{label:28s} N={n:7d} max_abs={worst_abs:.3e} "
-              f"max_rel={worst:.3e} ({part}) tol_rel={tol:.0e} "
-              f"kernel={ms:.3f} ms (launched idle {idle_ms:.3f} ms) "
-              f"plain={plain_ms:.3f} ms "
-              f"bound={b_ms:.3f} ms ({b_by})")
-        if not worst <= tol:
-            _fail(f"{label}: relative error {worst:.3e} > {tol:.0e} in "
-                  f"{part}; all: {errs}")
-        r = rows.setdefault(name, {"name": name, "route": "cuda",
-                                   "source": SOURCE[name],
-                                   "replaces": REPLACES[name],
-                                   "max_abs_err": 0.0, "ms": {},
-                                   "ms_idle_launch": {},
-                                   "plain_ms": {}, "bound_ms": {},
-                                   "bound_by": {}})
-        r["max_abs_err"] = max(r["max_abs_err"], worst_abs)
-        r["ms"][label] = ms
-        r["ms_idle_launch"][label] = idle_ms
-        r["plain_ms"][label] = plain_ms
-        r["bound_ms"][label] = b_ms
-        r["bound_by"][label] = b_by
+        record_label(rows, name, pre + label, errs, fn, plain_ms, n,
+                     kind or name, shape)
 
     # K0 at the BA shape, row layout [N, 3] -> [N, E]
     x = test_points(sz["ba"], 1, dev)
@@ -1011,65 +1015,19 @@ def phase_mesh(slam, cfg, ds):
     backward kernel, a finite non-empty mesh within the accuracy and
     completion limits, and the same mesh again from a checkpoint through
     a fresh system's resume_from. Returns the mesher's launch counts."""
-    import torch
-    from mipsfusion_tpu_torch.eval.recon import evaluate_synthetic_mesh
-    from mipsfusion_tpu_torch.ops import field_cuda as fc
-    from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
     used = int(slam.state.localMLP_info[:, 0].sum().item())
     voxel = cfg["mesh"]["voxel_final"]
-    fc.reset_launch_counts()
-    t0 = time.time()
-    verts, faces, colors = slam.extract_mesh(voxel_size=voxel)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = fc.launch_counts()
-    times = dict(slam.mesh_times)
-    print(f"mesh: {used} submaps (joint)  voxel {voxel}  grid "
-          f"{times.get('grid_shape')}  {len(verts)} vertices "
-          f"{len(faces)} faces  wall {wall:.2f} s  launches {counts}")
-    print("mesh steps (s; volume_device_ms: CUDA events): " + json.dumps(
-        {k: (round(v, 4) if isinstance(v, float) else v)
-         for k, v in times.items()}))
     if used < 2:
         _fail(f"mesh: {used} submap(s), the joint path needs 2")
+    counts, _, m = _mesh_and_resume(slam, cfg, ds, voxel, "mesh")
     if counts["field_forward"] <= 0 or any(
             counts[k] for k in ("decoder_backward", "plane_backward",
                                 "x_backward", "encode_forward")):
         _fail(f"mesh launches {counts}: want K1 and no other kernel")
-    if not (len(verts) and len(faces) and np.isfinite(verts).all()
-            and np.isfinite(colors).all()):
-        _fail("mesh: empty or non-finite")
-    t0 = time.time()
-    m = evaluate_synthetic_mesh(slam, verts=verts)
-    print(f"mesh accuracy {m['mesh_accuracy_m'] * 1000:.2f} mm  "
-          f"completion@5cm {m['mesh_completion@5cm']:.4f}  observed "
-          f"fraction of GT samples {m['gt_observed_frac']:.3f}  "
-          f"(evaluation {time.time() - t0:.2f} s)")
     if not m["mesh_accuracy_m"] < 0.05:
         _fail(f"mesh accuracy {m['mesh_accuracy_m']:.4f} m >= 0.05 m")
     if not m["mesh_completion@5cm"] > 0.85:
         _fail(f"mesh completion@5cm {m['mesh_completion@5cm']:.4f} <= 0.85")
-    # the same mesh from a checkpoint, through a fresh system
-    tmp = tempfile.mkdtemp(prefix="mf_mesh_ckpt_")
-    try:
-        slam.output_dir = tmp
-        t0 = time.time()
-        ckpt = slam.save_checkpoint("mesh")
-        fresh = MIPSFusionTorch(cfg, dataset=ds, device=slam.device)
-        fresh.resume_from(ckpt)
-        v2, f2, c2 = fresh.extract_mesh(voxel_size=voxel)
-        print(f"mesh after save_checkpoint + resume_from: {len(v2)} "
-              f"vertices {len(f2)} faces ({time.time() - t0:.2f} s)")
-        print("mesh steps again, warm (s): " + json.dumps(
-            {k: (round(v, 4) if isinstance(v, float) else v)
-             for k, v in fresh.mesh_times.items()}))
-        if not (np.array_equal(verts, v2) and np.array_equal(faces, f2)
-                and np.array_equal(colors, c2)):
-            _fail("mesh after resume_from differs from the live mesh")
-        print("mesh after resume_from: bitwise equal to the live mesh")
-    finally:
-        slam.output_dir = None
-        shutil.rmtree(tmp, ignore_errors=True)
     return counts
 
 
@@ -1124,8 +1082,39 @@ def phase_cli(n_frames: int = 30, ckpt_at: int = 15):
             for w in ("ckpt.npz", "model_0.npz", "opt_state.npz"):
                 if not os.path.exists(os.path.join(exp, "ckpt_final", w)):
                     _fail(f"cli {label}: ckpt_final lacks {w}")
+        cli_eval_ate(yaml, exp, n_frames, root)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cli_eval_ate(yaml: str, exp: str, n_frames: int, root: str):
+    """The port's eval_ate tool on the CLI's trajectory file and the
+    scene's ground truth (written as TUM from the config's dataset): it
+    must print the ATE the CLI wrote to ate_final.txt, within 1e-6 m."""
+    import torch
+    from mipsfusion_tpu_torch.config import load_config
+    from mipsfusion_tpu_torch.datasets.dataset import get_dataset
+    from mipsfusion_tpu_torch.eval.ate import save_traj_tum
+    ds = get_dataset(load_config(yaml), torch.device("cuda"))
+    gt = os.path.join(exp, "gt_tum.txt")
+    save_traj_tum(np.stack([ds.gt_pose(i) for i in range(n_frames)]), gt)
+    est = os.path.join(exp, f"traj_{n_frames - 1}.txt")
+    res = subprocess.run(
+        [sys.executable, "-m", "mipsfusion_tpu_torch.tools.eval_ate", gt,
+         est], cwd=root, capture_output=True, text=True, timeout=120)
+    if res.returncode != 0:
+        _fail(f"eval_ate exited {res.returncode}: {res.stderr[-2000:]}")
+    key = "absolute_translational_error.rmse"
+    printed = float(re.search(rf"^{re.escape(key)}: (\S+)$", res.stdout,
+                              re.M).group(1))
+    with open(os.path.join(exp, "ate_final.txt")) as f:
+        cli = float(re.search(rf"^{re.escape(key)}: (\S+)$", f.read(),
+                              re.M).group(1))
+    print(f"tools: eval_ate on the CLI's traj_{n_frames - 1}.txt: ATE "
+          f"{printed:.9f} m, the CLI's {cli:.9f} m (|diff| "
+          f"{abs(printed - cli):.2e})")
+    if not abs(printed - cli) <= 1e-6:
+        _fail(f"eval_ate printed {printed} m, the CLI {cli} m")
 
 
 # The CP profile's joint mesh: what it must hold. Its vertices inside the
@@ -1498,6 +1487,343 @@ def phase_stress():
     return off_counts, on_counts
 
 
+# The HashGrid orbit's bounds: tests/test_slam_single.py:92's ATE, which
+# the JAX package's HashGrid run meets on the CPU, and the CP profile's
+# accuracy of the mesh's vertices inside the room.
+HASH_ATE = 0.02
+HASH_INSIDE_ACCURACY = 0.015
+HASH_FRAMES = 45
+
+
+def _mesh_and_resume(slam, cfg, ds, voxel: float, label: str):
+    """The run's mesh at ``voxel``, scored against the scene's analytic
+    SDF, and the same mesh bit for bit from save_checkpoint and a fresh
+    system's resume_from. Returns (launch counts, mesh accuracy split,
+    evaluation)."""
+    import torch
+    from mipsfusion_tpu_torch.eval.recon import (evaluate_synthetic_mesh,
+                                                 mesh_error_split)
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
+    fc.reset_launch_counts()
+    t0 = time.time()
+    verts, faces, colors = slam.extract_mesh(voxel_size=voxel)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = fc.launch_counts()
+    if not (len(verts) and len(faces) and np.isfinite(verts).all()
+            and np.isfinite(colors).all()):
+        _fail(f"{label}: empty or non-finite")
+    m = evaluate_synthetic_mesh(slam, verts=verts)
+    e = mesh_error_split(verts, slam.dataset.room_half.cpu())
+    used = int(slam.state.localMLP_info[:, 0].sum().item())
+    print(f"{label}: {used} submap(s)  voxel {voxel}  {len(verts)} "
+          f"vertices {len(faces)} faces  wall {wall:.2f} s  launches "
+          f"{counts}")
+    print(f"{label} steps (s; volume_device_ms: CUDA events): " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v)
+         for k, v in slam.mesh_times.items()}))
+    print(f"{label} accuracy {m['mesh_accuracy_m'] * 1000:.2f} mm  "
+          f"completion@5cm {m['mesh_completion@5cm']:.4f}  vertices outside "
+          f"the room {e['outside_share']:.4f}, accuracy of those inside "
+          f"{e['inside_accuracy_m'] * 1000:.2f} mm")
+    tmp = tempfile.mkdtemp(prefix="mf_mesh_ckpt_")
+    try:
+        slam.output_dir = tmp
+        ckpt = slam.save_checkpoint("mesh")
+        fresh = MIPSFusionTorch(cfg, dataset=ds, device=slam.device)
+        fresh.resume_from(ckpt)
+        v2, f2, c2 = fresh.extract_mesh(voxel_size=voxel)
+        if not (np.array_equal(verts, v2) and np.array_equal(faces, f2)
+                and np.array_equal(colors, c2)):
+            _fail(f"{label} after resume_from differs from the live mesh")
+        print(f"{label} after save_checkpoint + resume_from: bitwise equal "
+              "to the live mesh")
+    finally:
+        slam.output_dir = None
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts, e, m
+
+
+def phase_hash(n_frames: int = HASH_FRAMES):
+    """The reference paper's own field: phase 5's flagship orbit (45
+    frames, the same budgets, no manager) with grid.enc HashGrid at
+    base.yaml's full width (16 levels x 2 features, 2^19 rows, base 16 to
+    256), plain torch (no kernel: the JAX package has none for it), float32
+    with TF32 off. Holds the hash backward at BA's 195,000 points to the
+    same bits on two calls, the run (ATE < HASH_ATE, 1 submap, K0-K4 never
+    launched) to the same poses and field bits over the whole run twice,
+    its mesh at 3 cm (accuracy of the vertices inside the room <
+    HASH_INSIDE_ACCURACY) and the same mesh after a checkpoint and resume.
+    Returns the run's launch counts (all 0)."""
+    import torch
+    from mipsfusion_tpu_torch.config import flagship_orbit
+    from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
+    from mipsfusion_tpu_torch.ops import encoding as enc
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
+    dev = torch.device("cuda")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        _fail("hash: TF32 is on for PyTorch's matrix products")
+    cfg = flagship_orbit(use_manager=False)
+    cfg["data"]["output"] = None
+    cfg["grid"]["enc"] = "HashGrid"
+    ds = SyntheticDataset(cfg, n_frames=n_frames, trajectory="orbit",
+                          span=n_frames / 200.0, device=dev)
+    slam = MIPSFusionTorch(cfg, dataset=ds, device=dev)
+    g = slam.fcfg.grid
+    width = (slam.fcfg.enc, g.n_levels, g.n_features, g.log2_hashmap_size,
+             g.base_resolution, g.desired_resolution,
+             slam.fcfg.decoder.input_ch)
+    if width != ("HashGrid", 16, 2, 19, 16, 256, 32):
+        _fail(f"hash: the field is {width}, not base.yaml's hash grid")
+    # the table gradient at BA's 195,000 points: int64 fixed point, the
+    # same bits whatever order the atomics take
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    table = torch.rand(tuple(slam.field.hash.shape), generator=gen,
+                       device=dev) * 2 - 1
+    x = test_points(195_000, 14, dev).T.contiguous()
+    gout = torch.randn((195_000, g.out_dim), generator=gen, device=dev)
+    grads = [enc._hash_backward(table, x, gout, g, True, True)
+             for _ in range(2)]
+    same("hash backward at 195,000", grads[0], grads[1])
+    fwd_ms = _time_idle_ms(lambda: enc.hash_encode(table, x, g))
+    bwd_ms = _time_idle_ms(lambda: enc._hash_backward(table, x, gout, g,
+                                                      True, True))
+    print(f"hash encode at 195,000 points: forward {fwd_ms:.3f} ms, "
+          f"backward (table and x) {bwd_ms:.3f} ms (one call on an idle "
+          "device, host time included)")
+    del table, x, gout, grads
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    t0 = time.time()
+    res = slam.run(verbose=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = fc.launch_counts()
+    ate = res["absolute_translational_error.rmse"]
+    print(f"hash orbit: {n_frames} frames  ATE RMSE {ate * 1000:.2f} mm  "
+          f"tracked FPS {res['fps']:.2f}  wall {wall:.1f} s  submaps "
+          f"{res['n_submaps']}  peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  launches "
+          f"{counts}")
+    print("hash orbit stage ms (CUDA events, mean per call): "
+          + json.dumps({k: round(v, 3) for k, v in slam.stage_ms().items()}))
+    if any(counts.values()):
+        _fail(f"hash orbit launched a Triplane kernel: {counts}")
+    if not np.isfinite([float(v) for v in slam.track_losses]).all():
+        _fail("hash orbit: non-finite tracking loss")
+    if not ate < HASH_ATE:
+        _fail(f"hash orbit ATE {ate:.4f} m >= {HASH_ATE} m")
+    if res["n_submaps"] != 1:
+        _fail(f"hash orbit n_submaps {res['n_submaps']} != 1")
+    again = MIPSFusionTorch(cfg, dataset=ds, device=dev)
+    again.run(verbose=False)
+    same("hash orbit run twice", (slam.state.est_c2w, slam.state.est_c2w_rel,
+                                  slam.field.params(detach=True)),
+         (again.state.est_c2w, again.state.est_c2w_rel,
+          again.field.params(detach=True)))
+    del again
+    mesh_counts, e, _ = _mesh_and_resume(slam, cfg, ds, 0.03, "hash mesh")
+    if any(mesh_counts.values()):
+        _fail(f"hash mesh launched a Triplane kernel: {mesh_counts}")
+    if not e["inside_accuracy_m"] < HASH_INSIDE_ACCURACY:
+        _fail(f"hash mesh: accuracy inside the room "
+              f"{e['inside_accuracy_m']:.4f} m >= {HASH_INSIDE_ACCURACY} m")
+    return counts
+
+
+def phase_consistency(seed: int = 0):
+    """The SDF-consistency global BA on the main path's scene: the
+    flagship outback (phase 6's config and budgets, 200 frames, the
+    manager) with mapping.global_BA.sdf_consistency, at ``seed`` (the first
+    seed of phase 6 that closes a loop). Every consistency stage (after
+    each PGO) is watched: its overlapping pairs, the anchors before and
+    after (anchor 0 bit for bit, some free anchor moved) and the launches
+    inside it (K1, K2 without weight gradients, K4; no K3). Holds at least
+    one stage with a pair, and the run's ATE < 0.03 m. Returns (the
+    stages' launch counts, the run's, the points of each submap's query in
+    the stages)."""
+    import torch
+    from mipsfusion_tpu_torch.config import flagship_outback
+    from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
+    dev = torch.device("cuda")
+    cfg = flagship_outback(use_manager=True, seed=seed)
+    cfg["data"]["output"] = None
+    cfg["mapping"]["global_BA"]["sdf_consistency"] = True
+    ds = SyntheticDataset(cfg, n_frames=200, trajectory="outback", span=1.0,
+                          device=dev)
+    slam = MIPSFusionTorch(cfg, dataset=ds, device=dev)
+    inner = slam.global_ba_consistency
+    stages = []
+    stage_counts = {k: 0 for k in fc.KERNEL_WRAPPERS}
+    stage_counts["decoder_backward_dw"] = 0
+
+    def watched(*a, **kw):
+        st = slam.state
+        used = slam._host_used
+        first = st.localMLP_first_kf[:used]
+        before = st.kf_c2w[first].clone()
+        c0, dw0 = fc.launch_counts(), fc.decoder_backward.dw_launches
+        n_log = len(slam.consistency_log)
+        inner(*a, **kw)
+        c1, dw1 = fc.launch_counts(), fc.decoder_backward.dw_launches
+        after = st.kf_c2w[first]
+        delta = {k: c1[k] - c0[k] for k in c1}
+        delta["decoder_backward_dw"] = dw1 - dw0
+        for k, v in delta.items():
+            stage_counts[k] += v
+        log = slam.consistency_log[n_log:]
+        moved = (after - before).abs().amax(dim=(1, 2)).cpu().numpy()
+        rec = {"frame": slam._last_tracked_frame, "used": used,
+               "pairs": log[0]["pairs"] if log else 0,
+               "points": log[0]["points"] if log else {},
+               "anchor0_same": bool(torch.equal(before[0], after[0])),
+               "moved_max": float(moved[1:].max()) if used > 1 else 0.0,
+               "launches": delta}
+        if log:
+            rec["loss_first_last"] = [float(log[0]["losses"][0]),
+                                      float(log[0]["losses"][-1])]
+        stages.append(rec)
+        print("consistency stage " + json.dumps(rec))
+
+    slam.global_ba_consistency = watched
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    t0 = time.time()
+    res = slam.run(verbose=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = fc.launch_counts()
+    ate = res["absolute_translational_error.rmse"]
+    ms = slam.stage_ms()
+    print(f"consistency outback: 200 frames  seed {seed}  ATE RMSE "
+          f"{ate * 1000:.2f} mm  tracked FPS {res['fps']:.2f}  wall "
+          f"{wall:.1f} s  submaps {res['n_submaps']}  switches "
+          f"{slam.switch_events}  peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"consistency outback launches {counts}  stage calls "
+          f"{dict(slam.stage_calls)}")
+    print("consistency outback stage ms (CUDA events, mean per call): "
+          + json.dumps({k: round(v, 3) for k, v in ms.items()}))
+    with_pairs = [r for r in stages if r["pairs"] >= 1]
+    if slam.stage_calls.get("pgo", 0) < 1 or not with_pairs:
+        _fail(f"consistency: no PGO followed by a consistency stage with "
+              f"an overlapping pair (stages {stages})")
+    if not all(r["anchor0_same"] for r in stages):
+        _fail("consistency: anchor 0 moved")
+    if not any(r["moved_max"] > 0 for r in with_pairs):
+        _fail("consistency: no free anchor moved")
+    if stage_counts["plane_backward"] or stage_counts["decoder_backward_dw"]:
+        _fail(f"consistency stages launched K3 or K2 with weight gradients: "
+              f"{stage_counts}")
+    if not all(stage_counts[k] > 0 for k in ("field_forward",
+                                             "decoder_backward",
+                                             "x_backward")):
+        _fail(f"consistency stages: want K1, K2 and K4, got {stage_counts}")
+    if not ate < 0.03:
+        _fail(f"consistency outback ATE {ate:.4f} m >= 0.03 m")
+    sizes = sorted({n for r in with_pairs for n in r["points"].values()})
+    return stage_counts, counts, sizes
+
+
+def phase_consistency_kernels(rows: dict, sizes):
+    """K1 with the embed, K2 without weight gradients and K4 with the PE's
+    share of d_x added, as the consistency stage calls them, at each point
+    count its per-submap queries had (``sizes``), against their plain
+    versions (labels "consistency:"), and twice for the same bits."""
+    import torch
+    from mipsfusion_tpu_torch.ops import _build
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    from mipsfusion_tpu_torch.ops import triplane_cuda as tc
+    dev = torch.device("cuda")
+    p = field_params("flag", 0, dev)
+    planes, dec = p["planes"], p["decoder"]
+    shape = _build.kernel_shape(planes, 2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    for n in sizes:
+        x = test_points(n, 22, dev, inside_only=True)
+        sfx = f"@{n}"
+        out, emb = fc.field_forward(x, planes, dec, 2, 8, 5,
+                                    return_embed=True)
+        ref, ref_emb = fc.field_forward_plain(x, planes, dec, 2, 8, 5,
+                                              return_embed=True)
+        errs = {"out": _err(out, ref), "embed": _err(emb, ref_emb)}
+        record_label(rows, "field_forward", "consistency:field_forward" + sfx,
+                      errs, lambda: fc.field_forward(x, planes, dec, 2, 8, 5,
+                                                     return_embed=True),
+                      _time_ms(lambda: fc.field_forward_plain(
+                          x, planes, dec, 2, 8, 5, return_embed=True)),
+                      n, "field_forward", shape)
+        same("consistency:field_forward" + sfx,
+             fc.field_forward(x, planes, dec, 2, 8, 5, return_embed=True),
+             fc.field_forward(x, planes, dec, 2, 8, 5, return_embed=True))
+        g = torch.zeros((10, n), device=dev)
+        g[3] = torch.randn((n,), generator=gen, device=dev) * 0.1
+        g, _ = kink_free(g, x, emb, dec)
+        k2 = fc.decoder_backward(x, g, emb, dec, 8, 5, weight_grads=False)
+        r2 = fc.decoder_backward_plain(x, g, emb, dec, 8, 5,
+                                       weight_grads=False)
+        record_label(rows, "decoder_backward",
+                      "consistency:decoder_backward_no_dW" + sfx,
+                      {"d_x": _err(k2[0], r2[0]),
+                       "d_embed": _err(k2[1], r2[1])},
+                      lambda: fc.decoder_backward(x, g, emb, dec, 8, 5,
+                                                  weight_grads=False),
+                      _time_ms(lambda: fc.decoder_backward_plain(
+                          x, g, emb, dec, 8, 5, weight_grads=False)),
+                      n, "decoder_backward_go", shape)
+        same("consistency:decoder_backward" + sfx, k2[:2],
+             fc.decoder_backward(x, g, emb, dec, 8, 5,
+                                 weight_grads=False)[:2])
+        k4 = tc.x_backward(x, k2[1], planes, 2, d_x_pe=k2[0])
+        r4 = tc.x_backward_plain(x, k2[1], planes, 2, d_x_pe=k2[0])
+        record_label(rows, "x_backward", "consistency:x_backward_add" + sfx,
+                      {"d_x": _err(k4, r4)},
+                      lambda: tc.x_backward(x, k2[1], planes, 2,
+                                            d_x_pe=k2[0]),
+                      _time_ms(lambda: tc.x_backward_plain(
+                          x, k2[1], planes, 2, d_x_pe=k2[0])),
+                      n, "x_backward_add", shape)
+        same("consistency:x_backward_add" + sfx, k4,
+             tc.x_backward(x, k2[1], planes, 2, d_x_pe=k2[0]))
+    torch.cuda.synchronize()
+
+
+def record_label(rows, name, label, errs, fn, plain_ms, n, kind, shape):
+    """One label of kernel ``name`` beside its plain version, recorded in
+    ``rows`` for the kernels line. errs: {output name: (max abs error,
+    relative error)}; fn: the kernel's call, timed here both ways;
+    ``kind`` selects the bound at the table shape ``shape``."""
+    ms, idle_ms = _time_ms(fn), _time_idle_ms(fn)
+    part, (worst_abs, worst) = max(errs.items(), key=lambda kv: kv[1][1])
+    b_ms, b_by = bound(kind, n, shape)
+    print(f"{label:28s} N={n:7d} max_abs={worst_abs:.3e} "
+          f"max_rel={worst:.3e} ({part}) tol_rel={TOL[name]:.0e} "
+          f"kernel={ms:.3f} ms (launched idle {idle_ms:.3f} ms) "
+          f"plain={plain_ms:.3f} ms bound={b_ms:.3f} ms ({b_by})")
+    if not worst <= TOL[name]:
+        _fail(f"{label}: relative error {worst:.3e} > {TOL[name]:.0e} in "
+              f"{part}; all: {errs}")
+    r = rows.setdefault(name, {"name": name, "route": "cuda",
+                               "source": SOURCE[name],
+                               "replaces": REPLACES[name],
+                               "max_abs_err": 0.0, "ms": {},
+                               "ms_idle_launch": {}, "plain_ms": {},
+                               "bound_ms": {}, "bound_by": {}})
+    r["max_abs_err"] = max(r["max_abs_err"], worst_abs)
+    r["ms"][label] = ms
+    r["ms_idle_launch"][label] = idle_ms
+    r["plain_ms"][label] = plain_ms
+    r["bound_ms"][label] = b_ms
+    r["bound_by"][label] = b_by
+
+
 # The outback's seeds. A run is reproducible, so a seed fixes its branch of
 # the manager's decisions; some seeds return to a previous submap's region
 # and open a new submap instead of switching back, where the
@@ -1523,7 +1849,8 @@ def phase_outbacks(seeds=OUTBACK_SEEDS):
     if not closing:
         _fail(f"outback: no run of seeds {list(seeds)} closed a loop "
               "(switch back with switch BA and PGO)")
-    return {s: counts for s, counts, _ in runs}, closing[0], mesh_counts
+    return ({s: counts for s, counts, _ in runs}, closing[0], mesh_counts,
+            {s: closed for s, _, closed in runs})
 
 
 def trace_outback(slam, ds, spawn=None):
@@ -1666,22 +1993,38 @@ def main(argv=None):
     ap.add_argument("--stress-only", action="store_true",
                     help="phases 1-2, then only phase 11 (the stress runs "
                          "and the injected slips)")
+    ap.add_argument("--hash-only", action="store_true",
+                    help="phases 1-2, then only phase 12 (the HashGrid "
+                         "orbit and its mesh)")
+    ap.add_argument("--consistency-only", action="store_true",
+                    help="phases 1-2, then only phase 13 (the consistency "
+                         "outback at seed 0) and its kernel labels")
     args = ap.parse_args(argv)
     if args.outback_seeds is not None:
         outback_seeds([int(s) for s in args.outback_seeds.split(",")],
                       args.outback_spawn)
         return 0
-    if args.scale_only or args.stress_only:
+    if (args.scale_only or args.stress_only or args.hash_only
+            or args.consistency_only):
         phase_device()
         phase_build(check_hmma=False)
-        from mipsfusion_tpu_torch.ops import field_cuda as fc
         if args.scale_only:
             print(json.dumps({"launches_scale": phase_scale(
                 trace=args.scale_trace)}))
-        else:
+        elif args.stress_only:
             off, on = phase_stress()
             print(json.dumps({"launches_stress": on,
                               "launches_stress_off": off}))
+        elif args.hash_only:
+            print(json.dumps({"launches_hash": phase_hash()}))
+        else:
+            stage, run, sizes = phase_consistency(OUTBACK_SEEDS[0])
+            rows = {}
+            phase_consistency_kernels(rows, sizes)
+            print(json.dumps({"launches_consistency": stage,
+                              "launches_consistency_run": run,
+                              "kernel_ms": {n: r["ms"]
+                                            for n, r in rows.items()}}))
         return 0
     phase_device()
     phase_build()
@@ -1700,21 +2043,26 @@ def main(argv=None):
         return 0
     k0_launches = fc.launch_counts()["encode_forward"]
     orbit_counts = phase_slam()
-    by_seed, counts, mesh_counts = phase_outbacks()
+    by_seed, counts, mesh_counts, closed_seeds = phase_outbacks()
     phase_cli()
     cp_counts, cp_mesh_counts = phase_cp_profile()
     scale_counts = phase_scale()
     stress_off, stress_counts = phase_stress()
+    hash_counts = phase_hash()
+    closing_seed = next(s_ for s_ in OUTBACK_SEEDS if closed_seeds[s_])
+    cons_stage, cons_run, cons_sizes = phase_consistency(closing_seed)
+    phase_consistency_kernels(rows, cons_sizes)
     # K0 has no SLAM caller (as triplane_encode_pallas has none in the JAX
     # package): no loop may launch it
     k0_loops = [orbit_counts["encode_forward"], cp_counts["encode_forward"],
                 scale_counts["encode_forward"],
                 stress_off["encode_forward"],
-                stress_counts["encode_forward"]] + [
+                stress_counts["encode_forward"],
+                cons_run["encode_forward"]] + [
         c["encode_forward"] for c in by_seed.values()]
     if any(k0_loops):
         _fail(f"K0 launched by a SLAM loop (orbit, cp profile, scale, "
-              f"stress off and on, outbacks): {k0_loops}")
+              f"stress off and on, consistency, outbacks): {k0_loops}")
     kernels = []
     for name, r in rows.items():
         on_path = name in SLAM_KERNELS
@@ -1738,6 +2086,12 @@ def main(argv=None):
             "launches_scale": scale_counts[name],
             "launches_stress": stress_counts[name],
             "launches_stress_off": stress_off[name],
+            # the HashGrid orbit (plain torch: none of these kernels) and
+            # the consistency stages of the consistency outback (K2's
+            # launches there are all without weight gradients)
+            "launches_hash": hash_counts[name],
+            "launches_consistency": cons_stage[name],
+            "launches_consistency_run": cons_run[name],
             "slam_caller": on_path,
             "max_abs_err": r["max_abs_err"],
             # "ms", "plain_ms" and the bound at the first shape measured

@@ -4,11 +4,13 @@ Port of ``mipsfusion_tpu/mesher/mesher.py``:
 
   * per-submap: a uniform grid over the submap's box (or the observed-
     surface box), SDF queries in chunks of ``query_chunk`` points through
-    K1 (``ops/field_cuda.field_forward``, full outputs, no embed), marching
-    cubes on the host (``marching.py``), a per-vertex colour query;
+    the field's gradient-free query (``scene_rep.field_outputs_T``: K1,
+    full outputs, no embed, on the Triplane field; the plain hash grid on
+    the HashGrid field), marching cubes on the host (``marching.py``), a
+    per-vertex colour query;
   * joint: the fused TSDF volume is computed on the device: grid points
-    are generated from the flat index, every submap is queried (one K1
-    call per submap per chunk), and the weights
+    are generated from the flat index, every submap is queried (one query
+    per submap per chunk), and the weights
     ``exp(-10 entropy) * gauss(dist / sigma) * mask`` fuse the SDFs; the
     volume goes to the host in float16, as the JAX package sends it, so
     marching cubes sees the same volume;
@@ -26,7 +28,6 @@ import numpy as np
 import torch
 
 from ..models import scene_rep as sr
-from ..ops.field_cuda import field_forward
 from .marching import marching_cubes
 
 
@@ -136,12 +137,10 @@ class Mesher:
         self.times: Dict[str, float] = {}
 
     def _query_T(self, params: Dict, ptsT: torch.Tensor) -> torch.Tensor:
-        """K1 on local-frame points [3, n] -> [5 + C, n] (rows 0-2 rgb,
-        3 sdf, 4 entropy)."""
-        xg = (sr.normalize_T(ptsT, self.consts)
-              / self.fcfg.norm_factor).contiguous()
-        return field_forward(xg, params["planes"], params["decoder"],
-                             *self.fcfg.meta)
+        """The field at local-frame points [3, n] -> [5 + C, n] (rows 0-2
+        rgb, 3 sdf, 4 entropy)."""
+        return sr.field_outputs_T(params, sr.normalize_T(ptsT, self.consts),
+                                  self.fcfg)
 
     @torch.no_grad()
     def query_grid(self, params: Dict, pts_local: np.ndarray) -> np.ndarray:

@@ -2,31 +2,46 @@
 
 Port of the transposed (points-minor) training path of
 ``mipsfusion_tpu/models/scene_rep.py``: rays [3, N], points [3, N*S],
-raw outputs [5 + C, N, S]. Every field query goes through the kernel
-wrappers of ``ops/field_cuda.py``: the differentiable ``FieldQueryT``
-for training (GO, BA, init) and the SDF-only forward for RO fitness.
+raw outputs [5 + C, N, S]. The field's encoding is ``FieldConfig.enc``:
 
-Field parameters are a tree in the JAX layout,
-``{"planes": {"s0", "s1"(, "s2"), "cp"}, "decoder": {layer: {"w", "b"}}}``;
-``Field`` holds them as ``nn.Parameter``s.
+  * ``"Triplane"`` (Triplane+CP): every query goes through the kernel
+    wrappers of ``ops/field_cuda.py``, the differentiable ``FieldQueryT``
+    for training (GO, BA, init) and K1 for gradient-free queries (RO
+    fitness, the mesher);
+  * ``"HashGrid"`` (the reference paper's field, and the JAX package's
+    default): ``ops/encoding.hash_encode`` + the frequency encoding + the
+    decoder in plain torch on every device, as in the JAX package (which
+    has no kernel for it), float32 with TF32 off.
+
+Field parameters are a tree in the JAX layout, ``{"planes": {"s0",
+"s1"(, "s2"), "cp"}, "decoder": {layer: {"w", "b"}}}`` or ``{"hash":
+[L, T, F], "decoder": ...}``; ``Field`` holds them as ``nn.Parameter``s.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 from torch import nn
 
-from ..ops.encoding import FrequencyConfig, TriplaneConfig, init_triplane
+from ..ops.encoding import (FrequencyConfig, HashGridConfig, TriplaneConfig,
+                            frequency_encode, hash_encode, init_hash_table,
+                            init_triplane)
 from ..ops.field_cuda import field_forward, field_query_T
 from ..ops.losses import compute_loss, get_sdf_loss_T, mse2psnr
-from .decoder import LAYERS, DecoderConfig, init_decoder
+from .decoder import LAYERS, DecoderConfig, decoder_apply, init_decoder
+
+ENCODINGS = ("HashGrid", "Triplane")
 
 
 @dataclasses.dataclass(frozen=True)
 class FieldConfig:
+    # the constructor's default stays the port's first field; from_dict
+    # defaults to "HashGrid", as the JAX package's does
+    enc: str = "Triplane"
+    grid: HashGridConfig = HashGridConfig()
     tri: TriplaneConfig = TriplaneConfig()
     freq: FrequencyConfig = FrequencyConfig()
     decoder: DecoderConfig = DecoderConfig()
@@ -53,25 +68,36 @@ class FieldConfig:
 
     @staticmethod
     def from_dict(cfg: dict) -> "FieldConfig":
-        if cfg["grid"].get("enc", "HashGrid") != "Triplane":
-            raise NotImplementedError(
-                "the port's field is Triplane+CP (grid.enc: Triplane)")
+        """The JAX package's ``FieldConfig.from_dict``: ``grid.enc``
+        defaults to "HashGrid" (16 levels x 2 features from base 16 to
+        256, 2^hash_size rows), ``grid.tri_resolutions`` to (32, 64, 128,
+        256)."""
+        g = cfg["grid"]
+        enc = g.get("enc", "HashGrid")
+        if enc not in ENCODINGS:
+            raise ValueError(f"grid.enc {enc!r}: the field is one of "
+                             f"{ENCODINGS}")
+        grid = HashGridConfig(
+            log2_hashmap_size=g.get("hash_size",
+                                    HashGridConfig.log2_hashmap_size),
+            desired_resolution=256)
         tri = TriplaneConfig(
-            resolutions=tuple(cfg["grid"].get("tri_resolutions", (32, 64))),
-            n_features=cfg["grid"].get("tri_features", 4),
-            cp_resolution=cfg["grid"].get("cp_resolution", 0),
-            cp_components=cfg["grid"].get("cp_components", 32))
+            resolutions=tuple(g.get("tri_resolutions", (32, 64, 128, 256))),
+            n_features=g.get("tri_features", 4),
+            cp_resolution=g.get("cp_resolution", 0),
+            cp_components=g.get("cp_components", 32))
         freq = FrequencyConfig(n_frequencies=cfg["pos"]["n_bins"])
         dec = cfg.get("decoder", {})
         decoder = DecoderConfig(
-            input_ch=tri.out_dim, input_ch_pos=freq.out_dim + 3,
+            input_ch=tri.out_dim if enc == "Triplane" else grid.out_dim,
+            input_ch_pos=freq.out_dim + 3,
             n_hidden=dec.get("hidden_dim", 128),
             n_hidden_branch=dec.get("hidden_dim", 128),
             n_hidden_rgb=dec.get("hidden_dim_color", 64),
             n_hidden_sdf=dec.get("geo_feat_dim", 64))
         t = cfg["training"]
         return FieldConfig(
-            tri=tri, freq=freq, decoder=decoder,
+            enc=enc, grid=grid, tri=tri, freq=freq, decoder=decoder,
             n_range_d=t["n_range_d"], range_d=t["range_d"],
             n_samples_d=t["n_samples_d"],
             near=cfg["cam"]["near"], far=cfg["cam"]["far"],
@@ -99,29 +125,43 @@ class FieldConsts(NamedTuple):
 def init_field(cfg: FieldConfig, generator: torch.Generator,
                device=None) -> Dict:
     """Random field params (the reference's init scales) as a tree."""
-    planes = init_triplane(cfg.tri, generator, device)
-    return {"planes": planes,
-            "decoder": init_decoder(cfg.decoder, generator, device)}
+    if cfg.enc == "HashGrid":
+        enc = {"hash": init_hash_table(cfg.grid, generator, device)}
+    else:
+        enc = {"planes": init_triplane(cfg.tri, generator, device)}
+    return {**enc, "decoder": init_decoder(cfg.decoder, generator, device)}
 
 
 class Field(nn.Module):
-    """The planes, CP lines and decoder of one submap as parameters."""
+    """The encoding (the planes and CP lines, or the hash table) and the
+    decoder of one submap as parameters."""
 
     def __init__(self, params: Dict):
         super().__init__()
-        self.planes = nn.ParameterDict(
-            {k: nn.Parameter(v.detach().clone())
-             for k, v in params["planes"].items()})
+        self.planes, self.hash = None, None
+        if "hash" in params:
+            self.hash = nn.Parameter(params["hash"].detach().clone())
+        else:
+            self.planes = nn.ParameterDict(
+                {k: nn.Parameter(v.detach().clone())
+                 for k, v in params["planes"].items()})
         self.decoder = nn.ModuleDict({
             name: nn.ParameterDict({k: nn.Parameter(t.detach().clone())
                                     for k, t in params["decoder"][name].items()})
             for name in LAYERS})
 
+    def embed_params(self) -> List[nn.Parameter]:
+        """The encoding's parameters (the map optimizer's embed group)."""
+        if self.hash is not None:
+            return [self.hash]
+        return list(self.planes.values())
+
     def params(self, detach: bool = False) -> Dict:
         f = (lambda t: t.detach()) if detach else (lambda t: t)
-        return {"planes": {k: f(v) for k, v in self.planes.items()},
-                "decoder": {n: {k: f(t) for k, t in d.items()}
-                            for n, d in self.decoder.items()}}
+        enc = ({"hash": f(self.hash)} if self.hash is not None else
+               {"planes": {k: f(v) for k, v in self.planes.items()}})
+        return {**enc, "decoder": {n: {k: f(t) for k, t in d.items()}
+                                   for n, d in self.decoder.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -132,19 +172,43 @@ def normalize_T(ptsT: torch.Tensor, consts: FieldConsts) -> torch.Tensor:
     return (ptsT - consts.bb_lo[:, None]) * consts.bb_inv_extent[:, None]
 
 
+def hash_field(params: Dict, x: torch.Tensor, cfg: FieldConfig,
+               sdf_only: bool = False) -> torch.Tensor:
+    """The HashGrid field at points x [N, 3] (already divided by the
+    norm factor) -> [N, 5 + C] (or [N, 1] sdf), the JAX package's
+    ``query_color_sdf`` composite."""
+    embed = hash_encode(params["hash"], x, cfg.grid)
+    pe = torch.cat([x, frequency_encode(x, cfg.freq.n_frequencies)], dim=-1)
+    return decoder_apply(params["decoder"], embed, pe, cfg.decoder.n_class,
+                         sdf_only=sdf_only)
+
+
 def query_color_sdf_T(params: Dict, ptsT_norm: torch.Tensor,
                       cfg: FieldConfig) -> torch.Tensor:
     """Differentiable query of normalized points [3, M] -> [5 + C, M]."""
+    if cfg.enc == "HashGrid":
+        return hash_field(params, (ptsT_norm / cfg.norm_factor).T, cfg).T
     return field_query_T(params, ptsT_norm / cfg.norm_factor, *cfg.meta)
+
+
+def field_outputs_T(params: Dict, ptsT_norm: torch.Tensor, cfg: FieldConfig,
+                    sdf_only: bool = False) -> torch.Tensor:
+    """Gradient-free query of normalized points [3, M] -> [5 + C, M] (or
+    [1, M] with ``sdf_only``): K1 on the Triplane field, the plain hash
+    grid on the HashGrid field."""
+    xg = (ptsT_norm / cfg.norm_factor).contiguous()
+    with torch.no_grad():
+        if cfg.enc == "HashGrid":
+            return hash_field(params, xg.T, cfg, sdf_only=sdf_only).T
+        return field_forward(xg, params["planes"], params["decoder"],
+                             *cfg.meta, sdf_only=sdf_only)
 
 
 def run_network_sdf_T(params: Dict, ptsT: torch.Tensor, cfg: FieldConfig,
                       consts: FieldConsts) -> torch.Tensor:
     """SDF-only query (no gradient) of local-frame points [3, N] -> [N]."""
-    xg = (normalize_T(ptsT, consts) / cfg.norm_factor).contiguous()
-    with torch.no_grad():
-        return field_forward(xg, params["planes"], params["decoder"],
-                             *cfg.meta, sdf_only=True)[0]
+    return field_outputs_T(params, normalize_T(ptsT, consts), cfg,
+                           sdf_only=True)[0]
 
 
 # ---------------------------------------------------------------------------

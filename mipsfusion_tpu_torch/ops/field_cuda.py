@@ -267,12 +267,15 @@ def decoder_backward(xT: torch.Tensor, g: torch.Tensor, embed: torch.Tensor,
         _build.stream())
     _build.check(err, "decoder_backward")
     decoder_backward.launches += 1
+    decoder_backward.dw_launches += int(weight_grads)
     if not weight_grads:
         return d_x, d_embed, None
     return d_x, d_embed, decoder_grads_from_flat(grads, shape)
 
 
 decoder_backward.launches = 0
+# the launches among them that also summed the weight gradients
+decoder_backward.dw_launches = 0
 
 
 def decoder_grads_from_flat(flat: torch.Tensor, shape) -> Tree:
@@ -362,6 +365,7 @@ def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     field_forward.sdf_launches_by_n = {}
+    decoder_backward.dw_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,7 +1,8 @@
 """Training losses: free-space / truncation SDF losses + EMD classification.
 
 Port of ``mipsfusion_tpu/ops/losses.py`` (``compute_loss``, ``mse2psnr``,
-``get_masks``, ``get_sdf_loss_T``), with the reference's scalings (EMD
+``get_masks``, ``get_sdf_loss_T``, and the cross-submap consistency losses
+of the SDF-consistency global BA), with the reference's scalings (EMD
 terms divided by 250 and 5000) and the mean-over-all-elements convention
 of the masked regression terms.
 """
@@ -61,3 +62,60 @@ def get_sdf_loss_T(z_vals: torch.Tensor, target_d: torch.Tensor,
         fs_loss = fs_loss + fs_loss1 * emd_w
         sdf_loss = sdf_loss + sdf_loss1 * emd_w
     return fs_loss, sdf_loss
+
+
+# ---------------------------------------------------------------------------
+# Cross-submap consistency (the SDF-consistency global BA, ref
+# geometry_helper.py:225-236 and InactiveMap.get_SDF_dif :149-192)
+# ---------------------------------------------------------------------------
+
+def sdf_consistency_loss(pred_sdf1: torch.Tensor, pred_sdf2: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Mean squared SDF difference over the valid rays (mask > 0)."""
+    loss = torch.sum((pred_sdf1 * mask - pred_sdf2 * mask) ** 2)
+    n = torch.count_nonzero(mask).to(pred_sdf1.dtype) + 0.001
+    return loss / n
+
+
+def rgb_consistency_loss(pred_rgb1: torch.Tensor, pred_rgb2: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Mean over the valid rays of the squared per-ray photometric L1;
+    rgb [N, 3], mask [N, 1]."""
+    per_ray = torch.where(mask[..., 0] > 0,
+                          torch.abs(pred_rgb1 - pred_rgb2).sum(-1),
+                          torch.zeros((), dtype=pred_rgb1.dtype,
+                                      device=pred_rgb1.device))
+    n = torch.count_nonzero(mask).to(pred_rgb1.dtype) + 0.001
+    return torch.sum(per_ray ** 2) / n
+
+
+def surface_points_T(rays_d_camT: torch.Tensor, target_d: torch.Tensor,
+                     pose: torch.Tensor) -> torch.Tensor:
+    """The rays' surface points [3, N] in the frame of ``pose`` (camera to
+    that frame): camera directions [3, N] rotated, times the depth [N],
+    plus the camera centre."""
+    return pose[:3, 3:4] + (pose[:3, :3] @ rays_d_camT) * target_d
+
+
+def cross_submap_consistency(params1, params2, fcfg, consts1, consts2,
+                             rays_d_camT: torch.Tensor,
+                             target_d: torch.Tensor, pose_local1,
+                             pose_local2, rgb_weight: float = 0.0):
+    """SDF (+ optional RGB) consistency of two submaps on shared surface
+    points: back-project the rays [3, N] at depths [N] in each submap's
+    local frame, query both fields there and penalize the disagreement."""
+    from ..models import scene_rep as sr
+
+    def query(params, consts, pose):
+        ptsT = surface_points_T(rays_d_camT, target_d, pose)
+        return sr.query_color_sdf_T(params, sr.normalize_T(ptsT, consts),
+                                    fcfg)
+
+    out1 = query(params1, consts1, pose_local1)
+    out2 = query(params2, consts2, pose_local2)
+    mask = (target_d > 0).to(out1.dtype)[:, None]
+    loss = sdf_consistency_loss(out1[3][:, None], out2[3][:, None], mask)
+    if rgb_weight > 0:
+        loss = loss + rgb_weight * rgb_consistency_loss(
+            out1[:3].T, out2[:3].T, mask)
+    return loss

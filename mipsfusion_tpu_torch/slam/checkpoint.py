@@ -18,8 +18,10 @@ same numbers: optax's ``count``, ``mu`` and ``nu`` are Adam's ``step``,
 order (``decoder``, then ``embed``), the group's count, then its ``mu``
 and its ``nu`` over the group's parameters in sorted key order (decoder
 layers ``rgb, sdf0, sdf1, trunk0, trunk1``, each ``b, w``; planes
-``cp, s0, s1``, and ``s2`` with a third scale). A file whose leaves do not match that layout gives a
-fresh optimizer, as the JAX package's ``load_opt_state`` does.
+``cp, s0, s1``, and ``s2`` with a third scale; a HashGrid field's embed
+group is its one table, ``hash``). A file whose leaves do not match that
+layout gives a fresh optimizer, as the JAX package's ``load_opt_state``
+does.
 
 Capacity: the JAX package rounds its frame capacity up to a multiple of
 256 (and its keyframe capacity with it); the port's state holds exactly
@@ -146,6 +148,8 @@ def _jax_group_order(field: Field):
     """[(group index in the port's Adam, [parameters in JAX leaf order])]
     for the JAX groups in sorted order: decoder, embed."""
     dec = [field.decoder[n][k] for n in sorted(LAYERS) for k in ("b", "w")]
+    if field.hash is not None:
+        return [(0, dec), (1, [field.hash])]
     planes = [field.planes[k] for k in sorted(field.planes.keys())]
     return [(0, dec), (1, planes)]
 

@@ -4,7 +4,8 @@ Port of ``mipsfusion_tpu/slam/mapper.py`` (``make_map_optimizer``,
 ``init_submap_fit``, ``_kf_sampling_weights``, ``local_ba``,
 ``switch_ba``). The map optimizer is one ``torch.optim.Adam`` with the
 reference's two groups (decoder: weight decay 1e-6 added to the gradient,
-eps 1e-8; planes and CP lines: eps 1e-15; betas (0.9, 0.99) for both);
+eps 1e-8; the embed, i.e. the planes and CP lines or the hash table: eps
+1e-15; betas (0.9, 0.99) for both);
 the active submap's persists across its first fit and every BA until the
 next switch, and background refinement makes a fresh one per round. Pose
 optimizers are fresh per BA (``tracker.MaskedAdam``, optax.adam's
@@ -60,7 +61,7 @@ def make_map_optimizer(field: sr.Field, mcfg: MapConfig) -> torch.optim.Adam:
     return torch.optim.Adam([
         {"params": list(field.decoder.parameters()), "lr": mcfg.lr_decoder,
          "weight_decay": 1e-6, "eps": 1e-8},
-        {"params": list(field.planes.parameters()), "lr": mcfg.lr_embed,
+        {"params": field.embed_params(), "lr": mcfg.lr_embed,
          "eps": 1e-15},
     ], betas=(0.9, 0.99))
 

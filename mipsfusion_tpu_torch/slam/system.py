@@ -31,8 +31,12 @@ anchor armed on the first frame, refreshed by the tracker and disarmed on
 a switch, a PGO or a resume, and ``mapping.kf_strain_mask`` (a keyframe
 tracked under strain stores zero depth).
 
-Left out (later slices): the SDF-consistency global BA, sharded
-refinement.
+With ``mapping.global_BA.sdf_consistency`` the PGO of a loop closure is
+followed by the SDF-consistency global BA (``global_ba_consistency``): the
+anchors are refined so that two submaps agree on the SDF at the surface
+points of the keyframes bound to both.
+
+Left out (a later slice): sharded refinement.
 
 Randomness: one ``torch.Generator`` per stage, reseeded from (config seed,
 stage, frame index or call count) at each use, so a run is reproducible
@@ -53,9 +57,10 @@ import torch
 from ..device import resolve_device
 from ..eval.ate import pose_evaluation, save_traj_tum
 from ..models import scene_rep as sr
-from ..ops.geometry import (get_frame_surface_bbox, pose_inverse,
-                            project_to_pixel, pts_in_bbox, qt_to_matrix,
-                            rays_to_world)
+from ..ops.geometry import (get_frame_surface_bbox, matrix_to_quaternion,
+                            pose_inverse, project_to_pixel, pts_in_bbox,
+                            qt_to_matrix, rays_to_world)
+from ..ops.losses import sdf_consistency_loss, surface_points_T
 from . import icp as icp_mod
 from . import manager as manager_mod
 from . import mapper, pose_graph, tracker
@@ -170,6 +175,40 @@ def global_pgo(st: SlamState, local_prev: torch.Tensor,
     nodes, _ = pose_graph.optimize_pose_graph(anchors, edges, rels, weights,
                                               node_mask, n_iters=10)
     st.kf_c2w.index_copy_(0, first_kf[:used], nodes[:used])
+
+
+def consistency_loss(params: Dict[int, Dict], pairs, dirsT, depth, local1,
+                     anchors, fcfg, consts) -> torch.Tensor:
+    """The SDF-consistency objective: the mean over overlapping keyframes
+    (k, m1, m2) of ``sdf_consistency_loss`` between submap m1's field at
+    the keyframe's surface points in m1's frame (its stored local pose
+    local1) and submap m2's at the same points carried through both
+    anchors. ``dirsT`` [P, 3, n] camera directions and ``depth`` [P, n]
+    of each pair's rays; ``anchors`` [used, 4, 4]; ``params[m]`` the
+    frozen field of submap m.
+
+    Every point queried in one submap, over all pairs and both sides,
+    goes through one query: the same pointwise function as a query per
+    pair and side, with one kernel launch per submap instead of two per
+    pair."""
+    groups: Dict[int, List] = {}
+    for j, (_, m1, m2) in enumerate(pairs):
+        local2 = pose_inverse(anchors[m2]) @ (anchors[m1] @ local1[j])
+        groups.setdefault(m1, []).append(
+            (j, 0, surface_points_T(dirsT[j], depth[j], local1[j])))
+        groups.setdefault(m2, []).append(
+            (j, 1, surface_points_T(dirsT[j], depth[j], local2)))
+    sdf = [[None, None] for _ in pairs]
+    for m, items in groups.items():
+        xT = sr.normalize_T(torch.cat([p for _, _, p in items], 1), consts)
+        out = sr.query_color_sdf_T(params[m], xT, fcfg)[3]
+        for (j, side, p), o in zip(items, torch.split(
+                out, [p.shape[1] for _, _, p in items])):
+            sdf[j][side] = o
+    mask = (depth > 0).to(depth.dtype)
+    total = sum(sdf_consistency_loss(a[:, None], b[:, None], w[:, None])
+                for (a, b), w in zip(sdf, mask))
+    return total / len(pairs)
 
 
 # ---------------------------------------------------------------------------
@@ -319,9 +358,6 @@ class MIPSFusionTorch:
 
     def __init__(self, config: Dict, dataset=None, device=None):
         m = config["mapping"]
-        if m.get("global_BA", {}).get("sdf_consistency", False):
-            raise NotImplementedError(
-                "mapping.global_BA.sdf_consistency is not ported")
         self.config = config
         self.device = resolve_device(device)
         if dataset is None:
@@ -398,6 +434,13 @@ class MIPSFusionTorch:
         self.sw_lr_trans = sw.get("lr_trans", 0.001)
         self.key_edge_weight = m.get("global_BA", {}).get(
             "key_edge_weight", 0.1)
+        # the SDF-consistency refinement of the anchors after each PGO
+        self.sdf_consistency = bool(m.get("global_BA", {}).get(
+            "sdf_consistency", False))
+        # per consistency stage: its overlapping pairs and the points each
+        # submap's query takes (host ints), the objective at each
+        # iteration (device scalars)
+        self.consistency_log: List[Dict] = []
         self.near_kf_num = 10
         # chunked new-submap init: the first fit drains init_chunk
         # iterations per tracked frame (0 = whole fit on the switch frame)
@@ -857,6 +900,68 @@ class MIPSFusionTorch:
                     self._host_used, self.key_edge_weight)
         # the PGO rewrote the frame poses: the anchor's pose is stale
         self._gate_disarm()
+        if self.sdf_consistency:
+            self._timed("consistency", self.global_ba_consistency)
+
+    def global_ba_consistency(self, n_iters: int = 10, n_rays: int = 512):
+        """Cross-submap SDF-consistency refinement of the submap anchors
+        (ref InactiveMap.global_BA_overlapping :375-473): every keyframe
+        bound to two live submaps (keyframe_ref -2) back-projects n_rays of
+        its stored rays (an even spread) in both submaps' frames, and Adam
+        (lr 1e-3) moves the anchors, as quaternion and translation, so the
+        two frozen fields agree on the SDF there; anchor 0 and submaps
+        past the used ones stay fixed (their gradients are zeroed before
+        the step). The fields are passed detached: no gradient reaches a
+        field parameter, so the backward runs K2 without weight gradients
+        and K4, never K3. The free anchors go back into kf_c2w."""
+        st = self.state
+        used = self._host_used
+        if used < 2:
+            return
+        kf_ref = st.keyframe_ref[:st.n_kf].cpu().numpy()
+        bind = self._host_kf_bind
+        pairs = [(k, int(bind[k, 0]), int(bind[k, 1]))
+                 for k in range(st.n_kf) if kf_ref[k] == -2 and bind[k, 1] >= 0]
+        pairs = [(k, m1, m2) for k, m1, m2 in pairs
+                 if self.fields[m1] is not None and self.fields[m2] is not None]
+        if not pairs:
+            return
+        R = st.kf_rays.shape[1]
+        dev = self.device
+        sub = torch.as_tensor(np.linspace(0, R - 1, min(n_rays, R)).astype(
+            np.int64), device=dev)
+        ks = torch.as_tensor([k for k, _, _ in pairs], device=dev)
+        rays = st.kf_rays[ks][:, sub]                        # [P, n, 7]
+        dirsT = rays[..., :3].transpose(1, 2)                # [P, 3, n]
+        depth = rays[..., 6]
+        local1 = st.est_c2w[self.kf_frames[ks]]
+        params = {m: self.fields[m].params(detach=True)
+                  for _, m1, m2 in pairs for m in (m1, m2)}
+        first_kf = st.localMLP_first_kf[:used]
+        anchors0 = st.kf_c2w[first_kf]
+        rot = matrix_to_quaternion(anchors0[:, :3, :3]).requires_grad_(True)
+        trans = anchors0[:, :3, 3].clone().requires_grad_(True)
+        opt = torch.optim.Adam([rot, trans], lr=1e-3)
+        free = (torch.arange(used, device=dev) > 0).to(torch.float32)[:, None]
+        losses = []
+        for _ in range(n_iters):
+            loss = consistency_loss(params, pairs, dirsT, depth, local1,
+                                    qt_to_matrix(rot, trans), self.fcfg,
+                                    self.consts)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            rot.grad.mul_(free)
+            trans.grad.mul_(free)
+            opt.step()
+            losses.append(loss.detach())
+        with torch.no_grad():
+            st.kf_c2w[first_kf[1:]] = qt_to_matrix(rot, trans)[1:]
+        points: Dict[int, int] = {}
+        for _, m1, m2 in pairs:
+            for m in (m1, m2):
+                points[m] = points.get(m, 0) + len(sub)
+        self.consistency_log.append({"pairs": len(pairs), "points": points,
+                                     "losses": losses})
 
     # ------------------------------------------------------------------
     # main loop
