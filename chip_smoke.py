@@ -27,12 +27,14 @@ Phases (any failure raises; the exit code is then non-zero):
                grid; then K2, K3 and K4 again on ray-ordered
                points (each ray's samples contiguous, as the loop lays them
                out), K4 with the PE's share of d_x added, and K2 without
-               weight gradients at the GO shape; K0-K4 at point counts
-               that are no multiple of a tile (195,001 and 63); K1's packed
-               weights against the plain packer; K1-K4 called twice give
-               the same bits; a SHA-256 of K2's and K3's outputs on fixed
-               flagship inputs (two trees with the same K2 and K3 print the
-               same digests);
+               weight gradients at the GO shape; K0 also on the BA's
+               ray-ordered points and on 786,432 points, equal bit for bit
+               to K1's embed at the BA shape and on those rays; K0-K4 at
+               point counts that are no multiple of a tile (195,001 and
+               63); K1's packed weights against the plain packer; K0-K4
+               called twice give the same bits; a SHA-256 of K0-K4's
+               outputs on fixed flagship inputs (two trees with the same
+               kernels print the same digests);
   4. autograd - FieldQueryT's and TriplaneEncode's gradients against the
                plain path, at every shape;
   5. orbit   - 45 frames of the flagship orbit at full budgets,
@@ -575,17 +577,35 @@ def kernel_shape_phase(shape_name: str, rows: dict):
         record_label(rows, name, pre + label, errs, fn, plain_ms, n,
                      kind or name, shape)
 
-    # K0 at the BA shape, row layout [N, 3] -> [N, E]
+    # K0, row layout [N, 3] -> [N, E]: at the BA shape on uniform points
+    # and on the BA's ray-ordered points, where it must give the bits of
+    # K1's embed (the same lookups: K0 is the oracle of K1's encode stage),
+    # and on 786,432 uniform points (once per field shape), where the
+    # launch's tail no longer hides the bound; each twice for the same bits
     x = test_points(sz["ba"], 1, dev)
-    xr0 = x.T.contiguous()
-    out = tc.encode_forward(xr0, planes, ns)
-    ref = tc.encode_forward_plain(planes, xr0, ns)
-    record("encode_forward", "encode_forward", {"embed": _err(out, ref)},
-           lambda: tc.encode_forward(xr0, planes, ns),
-           _time_ms(lambda: tc.encode_forward_plain(planes, xr0, ns)),
-           x.shape[1])
-    del xr0, out, ref
-    # K0 at point counts that are no multiple of its block
+    k0_labels = [("encode_forward", x),
+                 ("encode_forward@rays", ray_points(*sz["ba_rays"], 8, dev))]
+    if "shape" not in sz:
+        k0_labels.append(("encode_forward@786k", test_points(786_432, 14,
+                                                             dev)))
+    for label, xx in k0_labels:
+        xr0 = xx.T.contiguous()
+        out = tc.encode_forward(xr0, planes, ns)
+        ref = tc.encode_forward_plain(planes, xr0, ns)
+        same(pre + label, out, tc.encode_forward(xr0, planes, ns))
+        if label != "encode_forward@786k":
+            emb = fc.field_forward(xx, planes, dec, *meta,
+                                   return_embed=True)[1]
+            if not torch.equal(out, emb.T):
+                _fail(f"{pre}{label}: K0's encode and K1's embed differ in "
+                      f"{int((out != emb.T).sum())} of {out.numel()} values")
+            print(f"{pre + label:24s} K0 == K1's embed bit for bit")
+        record("encode_forward", label, {"embed": _err(out, ref)},
+               lambda: tc.encode_forward(xr0, planes, ns),
+               _time_ms(lambda: tc.encode_forward_plain(planes, xr0, ns)),
+               xx.shape[1])
+    del k0_labels, xr0, out, ref, emb
+    # K0 at point counts that are no multiple of its tile
     for n in (195_001, 63):
         xn = test_points(n, 12, dev).T.contiguous()
         e = _err(tc.encode_forward(xn, planes, ns),
@@ -773,8 +793,8 @@ def kernel_shape_phase(shape_name: str, rows: dict):
 def kernel_digests():
     """Print a SHA-256 of K2's and K3's outputs at the flagship's BA shape
     (uniform and ray-ordered points) and of K2's without weight gradients
-    at the GO shape, then of K1's (full, with the embed) and K4's on the
-    same inputs. The embed comes from the plain forward and the
+    at the GO shape, then of K1's (full, with the embed), K4's and K0's on
+    the same inputs. The embed comes from the plain forward and the
     cotangents from a seeded generator, so no other kernel shapes the
     inputs: two trees of the port whose kernels are the same print the
     same digests."""
@@ -807,10 +827,11 @@ def kernel_digests():
         k3 = tc.plane_backward(xx, d_embed, planes, 2)
         k1 = fc.field_forward(xx, planes, dec, 2, 8, 5, return_embed=True)
         k4 = tc.x_backward(xx, d_embed, planes, 2)
+        k0 = tc.encode_forward(xx.T.contiguous(), planes, 2)
         print(f"digest {label}: inputs {sha((xx, emb, g, d_embed))} "
               f"decoder_backward {sha([t for t in k2 if t is not None])} "
               f"plane_backward {sha(k3)} field_forward {sha(k1)} "
-              f"x_backward {sha(k4)}")
+              f"x_backward {sha(k4)} encode_forward {sha(k0)}")
 
 
 def phase_autograd():

@@ -88,19 +88,34 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+// How a lookup reads its 16-byte taps: from device memory through the
+// read-only path (the default; what K1 does), or from a table that K0 has
+// staged in shared memory. The arithmetic around the loads is the same
+// code for both, so the two give the same bits.
+struct GlobalLd {
+  __device__ __forceinline__ float4 operator()(const float* p) const {
+    return ld4(p);
+  }
+};
+struct SharedLd {
+  __device__ __forceinline__ float4 operator()(const float* p) const {
+    return *reinterpret_cast<const float4*>(p);
+  }
+};
+
 __device__ __forceinline__ float4 f4_axpy(float a, float4 x, float4 y) {
   return make_float4(fmaf(a, x.x, y.x), fmaf(a, x.y, y.y), fmaf(a, x.z, y.z),
                      fmaf(a, x.w, y.w));
 }
 
 // Bilinear lookup of the 4 features of one [R, R, 4] plane.
-template <int R>
+template <int R, class Ld = GlobalLd>
 __device__ __forceinline__ float4 plane_lookup(const float* P, const Tap& u,
-                                               const Tap& v) {
-  float4 p00 = ld4(P + (u.i0 * R + v.i0) * FEAT);
-  float4 p01 = ld4(P + (u.i0 * R + v.i1) * FEAT);
-  float4 p10 = ld4(P + (u.i1 * R + v.i0) * FEAT);
-  float4 p11 = ld4(P + (u.i1 * R + v.i1) * FEAT);
+                                               const Tap& v, Ld ld = {}) {
+  float4 p00 = ld(P + (u.i0 * R + v.i0) * FEAT);
+  float4 p01 = ld(P + (u.i0 * R + v.i1) * FEAT);
+  float4 p10 = ld(P + (u.i1 * R + v.i0) * FEAT);
+  float4 p11 = ld(P + (u.i1 * R + v.i1) * FEAT);
   float a = (1.0f - u.w) * (1.0f - v.w), b = (1.0f - u.w) * v.w;
   float c = u.w * (1.0f - v.w), d = u.w * v.w;
   float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -112,29 +127,30 @@ __device__ __forceinline__ float4 plane_lookup(const float* P, const Tap& u,
 }
 
 // Sum of the three plane lookups of one scale (planes xy, xz, yz).
-template <int R>
-__device__ __forceinline__ float4 scale_lookup(const float* S, const float x[3]) {
+template <int R, class Ld = GlobalLd>
+__device__ __forceinline__ float4 scale_lookup(const float* S, const float x[3],
+                                               Ld ld = {}) {
   Tap t[3] = {make_tap<R>(x[0]), make_tap<R>(x[1]), make_tap<R>(x[2])};
   const int RR = R * R * FEAT;
-  float4 a = plane_lookup<R>(S, t[0], t[1]);
-  float4 b = plane_lookup<R>(S + RR, t[0], t[2]);
-  float4 c = plane_lookup<R>(S + 2 * RR, t[1], t[2]);
+  float4 a = plane_lookup<R>(S, t[0], t[1], ld);
+  float4 b = plane_lookup<R>(S + RR, t[0], t[2], ld);
+  float4 c = plane_lookup<R>(S + 2 * RR, t[1], t[2], ld);
   return make_float4(a.x + b.x + c.x, a.y + b.y + c.y, a.z + b.z + c.z,
                      a.w + b.w + c.w);
 }
 
 // Product of the three CP line lookups for channels c..c+3.
-template <class Sh>
+template <class Sh, class Ld = GlobalLd>
 __device__ __forceinline__ float4 cp_lookup4(const float* cp, const float x[3],
-                                             int c) {
+                                             int c, Ld ld = {}) {
   constexpr int RCP = Sh::RCP, CCP = Sh::CCP;
   float4 prod = make_float4(1.f, 1.f, 1.f, 1.f);
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const Tap t = make_tap<RCP>(x[a]);
     const float* L = cp + (size_t)a * RCP * CCP;
-    float4 lo = ld4(L + t.i0 * CCP + c);
-    float4 hi = ld4(L + t.i1 * CCP + c);
+    float4 lo = ld(L + t.i0 * CCP + c);
+    float4 hi = ld(L + t.i1 * CCP + c);
     prod.x *= (1.0f - t.w) * lo.x + t.w * hi.x;
     prod.y *= (1.0f - t.w) * lo.y + t.w * hi.y;
     prod.z *= (1.0f - t.w) * lo.z + t.w * hi.z;

@@ -3,18 +3,47 @@
 // (common.cuh FieldShape), instantiated once per shape by shape.cu.
 //
 // K0 replaces mipsfusion_tpu/ops/triplane_pallas.py _fused_forward
-// (_make_fwd_kernel), the forward of triplane_encode_pallas. The TPU built
-// each lookup as a one-hot matmul over a 2048-point block with bf16 planes.
-// Here one thread per point gathers, per scale, the 4 taps of each of the
-// three planes (float4 reads of F = 4) and, for the CP term, 2 taps of
-// each of the three lines per group of 4 channels, with the device
-// functions K1 uses (common.cuh scale_lookup, cp_lookup4), so K0 and K1
-// share one interpolation, the upper-tap clamp included. It writes the
-// [N, E] row layout of triplane_encode_pallas (one float4 store per part:
-// 12 at the flagship's E = 48, 11 at E = 44, 13 at E = 52). The tables
-// (420 KB at the flagship, 0.8-1.0 MB with a 128 scale) stay in L2; it is
-// bound by the latency of ~84-108 dependent gathers a point, not by
-// device-memory bandwidth.
+// (_make_fwd_kernel), the forward of triplane_encode_pallas. The TPU held
+// the bf16 planes and CP lines whole in VMEM and built each lookup as a
+// one-hot matmul over a 2048-point block. K0 writes the [N, E] row layout
+// of triplane_encode_pallas: per point one float4 part per plane scale
+// (the sum of its three bilinear plane lookups), then one per group of 4
+// CP channels (the product of three linear line lookups): 12 parts at the
+// flagship's E = 48, 11 at E = 44, 13 at E = 52.
+// Bound: bytes (12 B in, 4E B out a point: 0.012 ms at 195,000 points at
+// the flagship). The first design (a thread a point, every tap an L2
+// gather) reached 17% of it: ~50 sectors a point crossed from L2, 6-9
+// times the bytes the bound counts, and a warp's stores half-filled
+// their sectors.
+// Design. The encode is cut into roles, one per plane scale and one for
+// the CP lines. Persistent blocks, one an SM, each take one role;
+// ops/_build.FieldShape.encode_plan splits the SMs across the roles in
+// proportion to their tap reads, once per shape and card.
+//  * A block stages its role's table in shared memory once, with bulk
+//    copies that complete on an mbarrier, where it fits (k0_staged, a
+//    fact of the shape): s0 48 KB, s1 and the CP lines 180-192 KB. The
+//    768 KB third scale of the cp and fcl shapes does not fit; its taps
+//    stay L2 gathers.
+//  * A scale lane takes a point (12 taps). A CP lane takes a point's
+//    group of 4 channels, point-major, so a point's groups sit on
+//    neighbouring lanes: their taps read one contiguous stretch of each
+//    line row, and a warp's stores fill whole sectors of the rows' CP
+//    parts.
+// Variants measured on the card (PERF.md section 6; the split between
+// roles with tools/k0_plans.py): every tap from L2 (lanes over parts
+// alone), only the CP lines or only the planes staged, the split moved
+// between roles or by the plain count of taps, 256 / 768 /
+// 1024 threads, 2-4 items a lane, the next item's point prefetched,
+// streamed stores, the CP items split into groups 0-7 and the rest (no
+// quarter-warp bank conflicts), and reading from L2 while the table
+// arrives: none beat this one at the flagship's 195,000 points. Probes
+// that take work away show what is left: with no lookups at all (the
+// points read, the output written by the roles' 16- and 160-byte stores)
+// it takes 80-90% of its time, about 1.7 times what PyTorch's zero_()
+// takes to write the same bytes.
+// The lookups are K1's (common.cuh scale_lookup, cp_lookup4, loading from
+// shared memory here), so K0 and K1 share one interpolation, the
+// upper-tap clamp included, and K0's output is K1's embed bit for bit.
 // Precision: float32 storage and math (the TPU cast planes and CP to bf16).
 //
 // K3 replaces mipsfusion_tpu/ops/triplane_pallas.py _fused_backward_plane
@@ -68,23 +97,202 @@ namespace mf {
 namespace {                                  // one copy per shape's object
 
 constexpr int K4_THREADS = 128;              // 4 lanes a point
-constexpr int K0_THREADS = 128;
+
+// ----------------------------------------------------------------- K0 ----
+
+constexpr int K0_THREADS = 512;
+constexpr int K0_ROLES = 4;                  // scale 0, 1, 2, the CP lines
+constexpr int K0_SMEM_MAX = 232448;          // a block's shared memory
+constexpr int K0_BARRIER = 16;               // the staging mbarrier
+constexpr int K0_CHUNK = 32768;              // bytes of one bulk copy
+
+// Bytes of role r's table: scale r's three planes (0 for a third scale
+// the shape does not have), then the CP lines.
+template <class Sh>
+__host__ __device__ constexpr int k0_table_bytes(int r) {
+  return r == 0   ? 3 * Sh::R0 * Sh::R0 * FEAT * 4
+         : r == 1 ? 3 * Sh::R1 * Sh::R1 * FEAT * 4
+         : r == 2 ? (Sh::NS > 2 ? 3 * Sh::R2 * Sh::R2 * FEAT * 4 : 0)
+                  : Sh::CP_SIZE * 4;
+}
+
+// Whether role r stages its table in shared memory: exactly where it fits
+// beside the barrier (every table at the flagship; at cp and fcl all but
+// the 786 KB third scale, whose taps stay L2 gathers).
+template <class Sh>
+__host__ __device__ constexpr bool k0_staged(int r) {
+  return k0_table_bytes<Sh>(r) > 0 &&
+         k0_table_bytes<Sh>(r) <= K0_SMEM_MAX - K0_BARRIER;
+}
+
+// The largest table a block stages: the table region of the dynamic
+// shared memory, the barrier behind it.
+template <class Sh>
+__host__ __device__ constexpr int k0_table_max() {
+  int m = 0;
+  for (int r = 0; r < K0_ROLES; ++r)
+    if (k0_staged<Sh>(r) && k0_table_bytes<Sh>(r) > m)
+      m = k0_table_bytes<Sh>(r);
+  return m;
+}
 
 template <class Sh>
-__global__ void __launch_bounds__(K0_THREADS)
+__host__ __device__ constexpr int k0_smem_bytes() {
+  return k0_table_max<Sh>() + K0_BARRIER;
+}
+
+// Blocks launched per role: role r owns the next blocks[r] blocks of the
+// grid.
+struct K0Plan {
+  int blocks[K0_ROLES];
+};
+
+// Copy `bytes` of a table into shared memory: one thread issues bulk
+// copies (the copy engine computes the addresses), which complete on an
+// mbarrier behind the table that every thread then waits on.
+__device__ __forceinline__ void k0_stage(const float* src, int bytes,
+                                         unsigned char* smem, int bar_off) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  const unsigned bar = (unsigned)__cvta_generic_to_shared(smem + bar_off);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(bytes)
+                 : "memory");
+    const char* g = reinterpret_cast<const char*>(src);
+    for (int off = 0; off < bytes; off += K0_CHUNK) {
+      const int n = bytes - off < K0_CHUNK ? bytes - off : K0_CHUNK;
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(dst + off),
+          "l"(g + off), "r"(n), "r"(bar)
+          : "memory");
+    }
+  }
+  __syncthreads();                           // the barrier is initialised
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+  } while (!done);
+}
+
+// The item i of a role: its point n and the embed part it fills. A scale
+// role (S >= 0) has an item a point, part S; the CP role (S < 0) an item
+// a point's group of 4 channels, point-major, so a point's groups sit on
+// neighbouring lanes: their taps read one contiguous stretch of each line
+// row, and a warp's stores fill whole sectors of the rows' CP parts.
+template <class Sh, int S>
+__device__ __forceinline__ void k0_item(unsigned i, unsigned& n,
+                                        unsigned& part) {
+  if constexpr (S >= 0) {
+    n = i;
+    part = S;
+  } else {
+    n = i / Sh::NCPG;
+    part = Sh::NS + (i - n * Sh::NCPG);
+  }
+}
+
+template <int R, class Ld>
+struct ScaleLook {                           // part S: a scale's 3 planes
+  const float* T;
+  Ld ld;
+  __device__ __forceinline__ float4 operator()(const float x[3],
+                                               unsigned) const {
+    return scale_lookup<R>(T, x, ld);
+  }
+};
+
+template <class Sh, class Ld>
+struct CpLook {                              // part NS + g: CP group g
+  const float* L;
+  Ld ld;
+  __device__ __forceinline__ float4 operator()(const float x[3],
+                                               unsigned part) const {
+    return cp_lookup4<Sh>(L, x, 4 * (part - Sh::NS), ld);
+  }
+};
+
+// Walk role S's items (S < 0: the CP role) on N points: block b of the
+// role's nb blocks takes the tiles of K0_THREADS items b, b + nb, .., a
+// lane an item.
+template <class Sh, int S, class Look>
+__device__ __forceinline__ void k0_walk(const float* __restrict__ x, int N,
+                                        float* __restrict__ out, int b,
+                                        int nb, Look look) {
+  const unsigned items = S >= 0 ? N : (unsigned)N * Sh::NCPG;
+  for (unsigned i = b * K0_THREADS + threadIdx.x; i < items;
+       i += nb * K0_THREADS) {
+    unsigned n, part;
+    k0_item<Sh, S>(i, n, part);
+    const float xp[3] = {x[3 * (size_t)n], x[3 * (size_t)n + 1],
+                         x[3 * (size_t)n + 2]};
+    *reinterpret_cast<float4*>(out + (size_t)n * Sh::EMB + FEAT * part) =
+        look(xp, part);
+  }
+}
+
+// Role R (0-2 a plane scale, 3 the CP lines) on block b of its nb, its
+// taps read with Ld from the table T.
+template <class Sh, int R, class Ld>
+__device__ __forceinline__ void k0_walk_role(const float* x, const float* T,
+                                             int N, float* out, int b,
+                                             int nb) {
+  if constexpr (R < 3) {
+    constexpr int RES = R == 0 ? Sh::R0 : R == 1 ? Sh::R1 : Sh::R2;
+    k0_walk<Sh, R>(x, N, out, b, nb, ScaleLook<RES, Ld>{T, {}});
+  } else {
+    k0_walk<Sh, -1>(x, N, out, b, nb, CpLook<Sh, Ld>{T, {}});
+  }
+}
+
+// Role R with its table staged in shared memory where it fits, else read
+// from L2.
+template <class Sh, int R>
+__device__ __forceinline__ void k0_role(const float* x, const float* T,
+                                        int N, float* out, int b, int nb,
+                                        unsigned char* smem) {
+  if constexpr (k0_staged<Sh>(R)) {
+    k0_stage(T, k0_table_bytes<Sh>(R), smem, k0_table_max<Sh>());
+    k0_walk_role<Sh, R, SharedLd>(x, reinterpret_cast<const float*>(smem),
+                                  N, out, b, nb);
+  } else {
+    k0_walk_role<Sh, R, GlobalLd>(x, T, N, out, b, nb);
+  }
+}
+
+template <class Sh>
+__global__ void __launch_bounds__(K0_THREADS, 1)
     encode_fwd_kernel(const float* __restrict__ x, Planes P, int N,
-                      float* __restrict__ out) {
-  const int n = blockIdx.x * K0_THREADS + threadIdx.x;
-  if (n >= N) return;
-  const float xp[3] = {x[3 * (size_t)n], x[3 * (size_t)n + 1],
-                       x[3 * (size_t)n + 2]};
-  float4* o = reinterpret_cast<float4*>(out + (size_t)n * Sh::EMB);
-  o[0] = scale_lookup<Sh::R0>(P.s[0], xp);
-  o[1] = scale_lookup<Sh::R1>(P.s[1], xp);
-  if constexpr (Sh::NS > 2) o[2] = scale_lookup<Sh::R2>(P.s[2], xp);
-#pragma unroll 2
-  for (int c = 0; c < Sh::CCP; c += 4)
-    o[Sh::NS + c / 4] = cp_lookup4<Sh>(P.cp, xp, c);
+                      float* __restrict__ out, K0Plan plan) {
+  extern __shared__ __align__(16) unsigned char k0_smem[];
+  // this block's role and its index among the role's blocks
+  int r = 0, b = blockIdx.x, nb = plan.blocks[0];
+#pragma unroll
+  for (int k = 0; k < K0_ROLES - 1; ++k)
+    if (r == k && b >= plan.blocks[k]) {
+      b -= plan.blocks[k];
+      r = k + 1;
+      nb = plan.blocks[k + 1];
+    }
+  if (r == 0) {
+    k0_role<Sh, 0>(x, P.s[0], N, out, b, nb, k0_smem);
+  } else if (r == 1) {
+    k0_role<Sh, 1>(x, P.s[1], N, out, b, nb, k0_smem);
+  } else if (r == 2) {
+    if constexpr (Sh::NS > 2) k0_role<Sh, 2>(x, P.s[2], N, out, b, nb, k0_smem);
+  } else {
+    k0_role<Sh, 3>(x, P.cp, N, out, b, nb, k0_smem);
+  }
 }
 
 constexpr int K3_THREADS = 256;
@@ -469,13 +677,37 @@ __global__ void __launch_bounds__(K4_THREADS)
 
 // ---------------------------------------------------------- launches ----
 
+// blocks: the plan's blocks per role (ops/_build.FieldShape.encode_plan);
+// a role gets no more blocks than it has tiles.
 template <class Sh>
 int encode_forward(const float* x, Planes P, int n, float* out,
-                   cudaStream_t st) {
+                   const int blocks[K0_ROLES], cudaStream_t st) {
   if (n <= 0) return (int)cudaSuccess;
-  const int grid = (n + K0_THREADS - 1) / K0_THREADS;
-  encode_fwd_kernel<Sh><<<grid, K0_THREADS, 0, st>>>(x, P, n, out);
+  if ((long long)n * Sh::NCPG >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  K0Plan plan;
+  int grid = 0;
+  for (int r = 0; r < K0_ROLES; ++r) {
+    const long long items = r == K0_ROLES - 1 ? (long long)n * Sh::NCPG
+                            : r < Sh::NS      ? n
+                                              : 0;
+    const long long tiles = (items + K0_THREADS - 1) / K0_THREADS;
+    plan.blocks[r] = (int)(blocks[r] < tiles ? blocks[r] : tiles);
+    if (items > 0 && plan.blocks[r] < 1) return (int)cudaErrorInvalidValue;
+    grid += plan.blocks[r];
+  }
+  encode_fwd_kernel<Sh><<<grid, K0_THREADS, k0_smem_bytes<Sh>(), st>>>(
+      x, P, n, out, plan);
   return (int)cudaGetLastError();
+}
+
+// Once per device before the first launch: K0's dynamic shared memory
+// exceeds the default 48 KB.
+template <class Sh>
+int encode_setup() {
+  return (int)cudaFuncSetAttribute(encode_fwd_kernel<Sh>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   k0_smem_bytes<Sh>());
 }
 
 // acc: Sh::PLANES + Sh::CP_SIZE zeroed int64 accumulators, mx: 3 zeroed
@@ -521,9 +753,17 @@ int x_backward(const float* x, const float* d_embed, Planes P, int n,
 #define MF_TRIPLANE_ENTRY_POINTS(SH, SUFFIX)                                  \
   extern "C" int mf_encode_forward_##SUFFIX(                                 \
       const float* x, const float* s0, const float* s1, const float* s2,     \
-      const float* cp, int n, float* out, void* stream) {                    \
+      const float* cp, int n, float* out, int b0, int b1, int b2, int bcp,   \
+      void* stream) {                                                        \
+    const int blocks[mf::K0_ROLES] = {b0, b1, b2, bcp};                      \
     return mf::encode_forward<SH>(x, mf::Planes{{s0, s1, s2}, cp}, n, out,   \
-                                  (cudaStream_t)stream);                     \
+                                  blocks, (cudaStream_t)stream);             \
+  }                                                                          \
+  extern "C" int mf_encode_setup_##SUFFIX() {                                \
+    return mf::encode_setup<SH>();                                           \
+  }                                                                          \
+  extern "C" int mf_encode_smem_size_##SUFFIX() {                            \
+    return mf::k0_smem_bytes<SH>();                                          \
   }                                                                          \
   extern "C" int mf_plane_backward_acc_size_##SUFFIX() {                     \
     return SH::PLANES + SH::CP_SIZE;                                         \

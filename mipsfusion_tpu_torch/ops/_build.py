@@ -51,7 +51,9 @@ _SIGNATURES = {
     "mf_decoder_grad_size": [],
     "mf_decoder_backward": ([_P, _P, _P, _I] + [_P] * 10
                             + [_P, _P, _I, _P, _P, _P, _I, _P]),
-    "mf_encode_forward": [_P] * 5 + [_I, _P, _P],
+    "mf_encode_forward": [_P] * 5 + [_I, _P] + [_I] * 4 + [_P],
+    "mf_encode_setup": [],
+    "mf_encode_smem_size": [],
     "mf_plane_backward_acc_size": [],
     "mf_plane_backward": [_P, _P, _P, _I] + [_P] * 7,
     "mf_x_backward": [_P] * 6 + [_I, _P, _P, _P],
@@ -148,7 +150,8 @@ def lib() -> ctypes.CDLL:
             sizes = {name: fn() for name, fn in fns.items()
                      if name.endswith("_size")}
             want = {"mf_decoder_grad_size": shape.grad_offsets[-1],
-                    "mf_plane_backward_acc_size": shape.table_size}
+                    "mf_plane_backward_acc_size": shape.table_size,
+                    "mf_encode_smem_size": shape.encode_smem}
             for name, n in want.items():
                 if sizes[name] != n:
                     raise RuntimeError(
@@ -231,6 +234,68 @@ PE_DIM = 3 + 3 * 2 * N_FREQ               # 51: raw xyz + sin/cos
 
 def _round8(n: int) -> int:
     return (n + 7) // 8 * 8
+
+
+# K0's launch plan (csrc/triplane.cuh encode_fwd_kernel). The encode is cut
+# into roles, one a plane scale (a lane a point) and one for the CP lines
+# (a lane a point's group of 4 channels); a block takes one role and walks
+# that role's tiles of K0_THREADS items. A role whose table fits in a
+# block's shared memory stages it there once (FieldShape.encode_staged, the
+# kernel's k0_staged). ENCODE_ROLES orders the roles as the kernel's grid
+# does.
+ENCODE_ROLES = ("s0", "s1", "s2", "cp")
+K0_THREADS = 512
+SMEM_MAX = 232_448                   # shared memory a block can use (sm_90)
+K0_BARRIER = 16                      # the staging mbarrier, behind the table
+# The relative cost of one 16-byte tap read, (staged, from L2), by which
+# encode_plan splits the SMs (a scale lane reads 12 taps, a CP lane 6): a
+# scale's taps fall on random banks, a point's CP groups read one
+# contiguous stretch of a line row, and an L2 read costs twice a staged
+# one. The weights were set by timing the plan on the card at each
+# shape's labels (tools/k0_plans.py; PERF.md section 6): the split by the
+# plain count of taps (every weight 1) is slower at every label, and no
+# move of 8 blocks to or from the CP role is faster at every label of a
+# shape.
+K0_TAP_COST = {"scale": (1.5, 3.0), "cp": (1.0, 2.0)}
+
+
+@dataclasses.dataclass(frozen=True)
+class EncodePlan:
+    """K0's launch plan at a shape on a card of ``n_sm`` SMs: ``blocks``
+    per role (ENCODE_ROLES' order, 0 for a scale the shape lacks; together
+    one block an SM, the most the shared memory allows) and the dynamic
+    shared memory of a block."""
+
+    blocks: tuple
+    smem: int
+
+    def grid(self, shape, n: int) -> tuple:
+        """The blocks launched per role for n points: no more than the
+        role's tiles (what csrc/triplane.cuh encode_forward launches)."""
+        return tuple(min(b, -(-items // K0_THREADS))
+                     for b, items in zip(self.blocks,
+                                         shape.encode_items(n)))
+
+
+def split_blocks(n_sm: int, cost) -> tuple:
+    """n_sm blocks split across roles in proportion to their cost, at least
+    one to each role with a cost above 0, none to the others."""
+    active = [r for r, c in enumerate(cost) if c > 0]
+    if n_sm < len(active):
+        raise ValueError(f"K0 needs {len(active)} SMs, got {n_sm}")
+    total = sum(cost)
+    share = [n_sm * c / total for c in cost]
+    blocks = [max(1, int(share[r])) if r in active else 0
+              for r in range(len(cost))]
+    # the blocks left to the largest remainders, or taken back from the
+    # largest roles
+    while sum(blocks) < n_sm:
+        r = max(active, key=lambda r: share[r] - blocks[r])
+        blocks[r] += 1
+    while sum(blocks) > n_sm:
+        r = max(active, key=lambda r: blocks[r] - share[r])
+        blocks[r] -= 1
+    return tuple(blocks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -322,6 +387,48 @@ class FieldShape:
             off.append(off[-1] + (fi + 1) * fo)
         return tuple(off)
 
+    @functools.cached_property
+    def encode_tables(self) -> tuple:
+        """Bytes of each K0 role's table (ENCODE_ROLES' order): a scale's
+        three planes (0 for a scale the shape lacks), the CP lines."""
+        planes = [3 * r * r * N_FEATURES * 4 for r in self.resolutions]
+        planes += [0] * (3 - len(planes))
+        return (*planes, 4 * 3 * self.cp_resolution * self.cp_components)
+
+    @functools.cached_property
+    def encode_staged(self) -> tuple:
+        """Whether each K0 role stages its table in shared memory: where it
+        fits beside the barrier (the kernel's k0_staged)."""
+        return tuple(0 < b <= SMEM_MAX - K0_BARRIER
+                     for b in self.encode_tables)
+
+    @functools.cached_property
+    def encode_smem(self) -> int:
+        """K0's dynamic shared memory a block: the largest staged table,
+        then the barrier."""
+        return K0_BARRIER + max(b for b, st in zip(self.encode_tables,
+                                                   self.encode_staged) if st)
+
+    def encode_items(self, n: int) -> tuple:
+        """Lanes of work per role for n points."""
+        return (*[n if s < self.n_scales else 0 for s in range(3)],
+                n * (self.cp_components // 4))
+
+    def encode_taps(self) -> tuple:
+        """16-byte tap reads a point per role: 12 a scale lane, 6 a CP lane
+        (one lane per group of 4 channels)."""
+        return tuple(items * (6 if r == 3 else 12)
+                     for r, items in enumerate(self.encode_items(1)))
+
+    @functools.lru_cache(maxsize=None)
+    def encode_plan(self, n_sm: int) -> EncodePlan:
+        """The n_sm blocks split across the roles in proportion to their
+        tap reads (K0_TAP_COST, staged or from L2), at least one each."""
+        cost = [taps * K0_TAP_COST["cp" if r == 3 else "scale"][
+                    0 if self.encode_staged[r] else 1]
+                for r, taps in enumerate(self.encode_taps())]
+        return EncodePlan(split_blocks(n_sm, cost), self.encode_smem)
+
     def fn(self, name: str):
         """The C entry point ``mf_<name>_<shape name>``, bound when the
         library loads (built on first use)."""
@@ -407,6 +514,23 @@ def ptr(t, name: str, shape=None) -> int:
 def stream() -> int:
     import torch
     return torch.cuda.current_stream().cuda_stream
+
+
+_encode_args = {}
+
+
+def encode_args(shape: FieldShape, device) -> tuple:
+    """K0's plan arguments at a shape on a device (``EncodePlan.blocks``),
+    worked out once per shape and device, when its shared-memory limit is
+    raised for the kernel."""
+    key = (shape.name, device)
+    args = _encode_args.get(key)
+    if args is None:
+        import torch
+        with torch.cuda.device(device):
+            check(shape.fn("encode_setup")(), "encode_setup")
+        args = _encode_args[key] = shape.encode_plan(sm_count(device)).blocks
+    return args
 
 
 _sm_counts = {}

@@ -53,6 +53,7 @@ def encode_forward(x: torch.Tensor, planes: Dict[str, torch.Tensor],
     args = [_build.ptr(x, "x", (N, 3))] + plane_ptrs(planes, shape)
     out = torch.empty((N, shape.embed_dim), device=x.device)
     err = shape.fn("encode_forward")(*args, N, out.data_ptr(),
+                                     *_build.encode_args(shape, x.device),
                                      _build.stream())
     _build.check(err, "encode_forward")
     encode_forward.launches += 1

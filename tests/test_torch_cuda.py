@@ -224,6 +224,51 @@ def test_encode_kernel_and_op_match_plain(card):
         assert chip_smoke._err(a, b)[1] < 1e-4
 
 
+@pytest.mark.parametrize("points", ["195001", "63", "rays"])
+def test_encode_kernel_matches_plain_at_ragged_sizes_and_on_rays(card,
+                                                                 points):
+    """K0 at point counts that are no multiple of its 512-lane tiles and on
+    ray-ordered points (each ray's samples contiguous): relative 2e-5, and
+    the same bits on a second call."""
+    dev, prm, META, E = card
+    x = (chip_smoke.ray_points(300, 75, 7, dev) if points == "rays"
+         else chip_smoke.test_points(int(points), 8, dev)).T.contiguous()
+    planes = prm["planes"]
+    out = tc.encode_forward(x, planes, META[0])
+    assert out.shape == (x.shape[0], E)
+    assert chip_smoke._err(out, tc.encode_forward_plain(planes, x,
+                                                        META[0]))[1] < 2e-5
+    assert torch.equal(out, tc.encode_forward(x, planes, META[0]))
+
+
+def test_encode_kernel_gives_k1s_embed_bits(card):
+    """K0 and K1's embed output are built from the same lookups (common.cuh
+    scale_lookup, cp_lookup4; K0 reads staged tables, K1 reads device
+    memory): on the same points and planes they agree bit for bit, so K0
+    is the oracle of K1's encode stage."""
+    dev, prm, META, E = card
+    for x in (chip_smoke.test_points(30_001, 9, dev),
+              chip_smoke.ray_points(400, 75, 10, dev)):
+        enc = tc.encode_forward(x.T.contiguous(), prm["planes"], META[0])
+        _, emb = fc.field_forward(x, prm["planes"], prm["decoder"], *META,
+                                  return_embed=True)
+        assert torch.equal(enc, emb.T)
+
+
+def test_encode_launch_plan_fits_the_card(card):
+    """K0's plan on this card: one block an SM split across the roles, the
+    dynamic shared memory within a block's 232,448 bytes, and the library's
+    own figure for it equal to the plan's."""
+    dev, prm, META, E = card
+    shape = _build.kernel_shape(prm["planes"], META[0])
+    n_sm = _build.sm_count(dev)
+    plan = shape.encode_plan(n_sm)
+    assert sum(plan.blocks) == n_sm
+    assert plan.smem <= 232_448
+    assert shape.size("encode_smem_size") == plan.smem
+    assert _build.encode_args(shape, dev) == plan.blocks
+
+
 def test_encode_backward_launches_only_what_is_asked(card):
     """TriplaneEncode's backward launches K3 only when a plane or the CP
     lines need a gradient and K4 only when x does."""

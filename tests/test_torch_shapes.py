@@ -204,6 +204,32 @@ def test_forward_matches_composite(field, mode):
         np.testing.assert_allclose(enc.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("n", [2048, 2748])
+def test_encode_matches_pallas_interpret(field, monkeypatch, n):
+    """K0's oracle (the port's plain encode) against the TPU kernel it
+    replaces, triplane_encode_pallas, run in Pallas interpret mode (as
+    tests/test_torch_field.py runs it), on one 2048-point block and on a
+    ragged count (two blocks, the second padded), with points outside and
+    on the edges of the unit cube. The TPU kernel casts the planes and CP
+    lines to bf16, so the values agree to 2e-2 of their scale (the bound
+    of tests/test_torch_field.py)."""
+    from mipsfusion_tpu.ops import triplane_pallas as tpl
+    monkeypatch.setenv("MIPS_PALLAS_INTERPRET", "1")
+    monkeypatch.setattr(tpl, "_INTERPRET", True)
+    _, shape, jf, p = field
+    x = points("edges", n=n, seed=4)
+    ref = np.asarray(tpl.triplane_encode_pallas(
+        jax.tree.map(jnp.asarray, p["planes"]), jnp.asarray(x),
+        jf.tri.resolutions))
+    out = tc.encode_forward(torch.tensor(x), torch_tree(p)["planes"],
+                            shape.n_scales).numpy()
+    assert out.shape == ref.shape == (n, shape.embed_dim)
+    for lo, hi in ((0, 4 * shape.n_scales), (4 * shape.n_scales,
+                                             shape.embed_dim)):
+        a, b = out[:, lo:hi], ref[:, lo:hi]
+        assert np.abs(a - b).max() <= 2e-2 * np.abs(b).max()
+
+
 @pytest.mark.parametrize("group", ["planes", "decoder", "x"])
 def test_field_query_grads_match_jax_grad(field, group):
     """FieldQueryT (plain K2, K3, K4) against jax.grad of the composite on

@@ -1,4 +1,4 @@
-"""Two checkouts of the PyTorch port on the same card: K1's and K4's
+"""Two checkouts of the PyTorch port on the same card: K0's, K1's and K4's
 outputs on fixed flagship inputs, where their bits differ, and the
 wrappers' host time a call.
 
@@ -8,15 +8,17 @@ wrappers' host time a call.
 ``run`` imports ``<checkout>/mipsfusion_tpu_torch`` (its own kernels, built
 at first use; it needs the card), makes the flagship field ([32, 64] x F4
 + CP 384 x 40, embed 48) and 195,000 points from numpy seeds, so no code
-of either checkout shapes the inputs, and saves on the host: K1's full
-output and embed, K1's sdf-only output, and K4's d_x for four cotangents
-(every embed row; the CP rows zeroed; scale 0's rows only; the CP rows
-only). It also prints the wall time a call of K1's and K4's wrappers
-takes at 64 points, 2,000 calls queued back to back and synchronised once
-(median of 5 rounds): the kernels are tiny there, so the time is the
-host's (shape lookup, argument checks, allocations, the ctypes call, the
-launch). ``compare`` prints, per kernel output and row, how many values
-differ and the largest difference in units in the last place.
+of either checkout shapes the inputs, and saves on the host: K0's encode
+(as [E, N]), K1's full output and embed, K1's sdf-only output, and K4's d_x
+for four cotangents (every embed row; the CP rows zeroed; scale 0's rows
+only; the CP rows only). It also prints the wall time a call of K0's,
+K1's and K4's wrappers takes at 64 points, 2,000 calls queued back to
+back and synchronised once (median of 5 rounds): the kernels are tiny
+there, so the time is the host's (shape lookup, argument checks,
+allocations, the ctypes call, the launch); and the time of one K0 call
+launched on an idle device at 55,536 and 195,000 points (median of 50).
+``compare`` prints, per kernel output and row, how many values differ and
+the largest difference in units in the last place.
 """
 
 import argparse
@@ -71,7 +73,8 @@ def run(checkout: str, out: str):
     planes = {k: t(v) for k, v in planes.items()}
     dec = {k: {"w": t(v["w"]), "b": t(v["b"])} for k, v in dec.items()}
     x, d_embed = t(x), t(d_embed)
-    res = {}
+    # K0's [N, E] saved as [E, N], a row per embed row as K1's embed
+    res = {"k0_encode": tc.encode_forward(x.T.contiguous(), planes, 2).T}
     o, emb = fc.field_forward(x, planes, dec, 2, 8, 5, return_embed=True)
     res["k1_out"], res["k1_embed"] = o, emb
     res["k1_sdf_only"] = fc.field_forward(x, planes, dec, 2, 8, 5,
@@ -82,8 +85,11 @@ def run(checkout: str, out: str):
         res[f"k4_{case}"] = tc.x_backward(x, g, planes, 2)
     torch.cuda.synchronize()
     xs = x[:, :64].contiguous()
+    xr = xs.T.contiguous()
     gs = d_embed[:, :64].contiguous()
-    for name, fn in (("field_forward", lambda: fc.field_forward(
+    for name, fn in (("encode_forward", lambda: tc.encode_forward(
+            xr, planes, 2)),
+                     ("field_forward", lambda: fc.field_forward(
             xs, planes, dec, 2, 8, 5)),
                      ("x_backward", lambda: tc.x_backward(xs, gs, planes,
                                                           2))):
@@ -99,6 +105,24 @@ def run(checkout: str, out: str):
         print(f"{checkout}: {name} host ms a call at 64 points "
               f"{float(np.median(times)):.4f} (rounds "
               + " ".join(f"{v:.4f}" for v in times) + ")")
+    # K0 launched on an idle device, the wrapper's host time inside (as
+    # chip_smoke's idle times): the scale profile's BA batch and the
+    # flagship's, median of 50 calls
+    for n in (55_536, N):
+        xe = x[:, :n].T.contiguous()
+        times = []
+        for i in range(51):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            tc.encode_forward(xe, planes, 2)
+            b.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(a.elapsed_time(b))
+        print(f"{checkout}: encode_forward idle launch ms at {n} points "
+              f"{float(np.median(times)):.4f} (min {min(times):.4f}, max "
+              f"{max(times):.4f})")
     np.savez(out, **{k: v.cpu().numpy() for k, v in res.items()})
     print(f"{checkout}: saved {sorted(res)} to {out}")
 
