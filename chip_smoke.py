@@ -111,7 +111,27 @@ Phases (any failure raises; the exit code is then non-zero):
                gradients) and K4 launch, K3 never; then K1 with the embed,
                K2 without weight gradients and K4 with d_x_pe at the
                stage's per-submap point counts against their plain
-               versions (labels "consistency:").
+               versions (labels "consistency:");
+ 14. sharded - the multi-device path on every card, or with one card on
+               the virtual mesh ["cuda:0", "cuda:0"] (printed as such;
+               phases 5-13 run on one card, the system's default mesh):
+               phase 5's orbit with parallel.dp_hot_path (RO, GO, BA and
+               the first fit split over the mesh), twice, the same bits,
+               its ATE within 0.005 m of phase 5's; phase 6's outback
+               with both parallel switches on (every inactive submap
+               refined in one step) at phase 6's first loop-closing
+               seed: ATE < 0.03 m and within 0.02 m of phase 6's run of
+               that seed, 2+ submaps, a sharded refine, a switch back,
+               K1-K4 launched on every mesh device (per-device counts)
+               and K0 never; track, BA and refine stage ms and FPS at 1
+               shard and on the mesh. A run without a switch back must
+               have parted from phase 6's decisions at a keyframe where
+               the two runs' boxes and counted points (their median)
+               lie closer than 0.02 m and, in both runs, moving the
+               box's faces by that distance carries the containment
+               ratio across its threshold (both runs' predicates printed
+               at every keyframe up to it); the next closing seed is
+               then held to every check.
 The kernels' JSON line comes second to last; the last line is
 {"ok": true, "device": {...}}.
 
@@ -137,6 +157,11 @@ predicates and pose errors at every keyframe) or phase 11 alone.
 
 run phases 1-2 and then phase 12, or phase 13 at seed 0 with its kernel
 labels, alone.
+
+    python3 chip_smoke.py --sharded-only
+
+runs phases 1-2 and then phase 14, with the unsharded orbit and outbacks
+it is held against (phase 6's seeds in order, to its first closing one).
 """
 
 from __future__ import annotations
@@ -920,9 +945,13 @@ SLAM_KERNELS = ("field_forward", "decoder_backward", "plane_backward",
 
 def _run_path(slam):
     """Drive the port's entry point with every launch count set to 0 just
-    before and read just after; returns (results, counts, wall s)."""
+    before and read just after; returns (results, counts, wall s). The
+    per-device counts of the run stay in fc.launch_counts(by_device=True)
+    until the next reset."""
     import torch
     from mipsfusion_tpu_torch.ops import field_cuda as fc
+    print(f"mesh: {slam.mesh}  dp_hot_path {slam.use_dp_hot}  "
+          f"sharded_refine {slam.use_sharded_refine}")
     fc.reset_launch_counts()
     t0 = time.time()
     res = slam.run(verbose=False)
@@ -963,6 +992,8 @@ def phase_slam(n_frames: int = 45):
         _fail(f"orbit ATE {ate:.4f} m >= 0.02 m")
     if res["n_submaps"] != 1:
         _fail(f"orbit n_submaps {res['n_submaps']} != 1")
+    RUNS["orbit"] = {"ate": ate, "fps": res["fps"],
+                     "stage_ms": slam.stage_ms()}
     # a run is reproducible: the same config and seed again give the same
     # poses and field, bit for bit
     again = MIPSFusionTorch(cfg, dataset=ds, device=dev)
@@ -981,7 +1012,8 @@ def phase_outback(n_frames: int = 200, seed: int = 0, spawn=None,
     random draws and initial field; ``trace``/``spawn``: see
     ``trace_outback``). With ``mesh``, a run that closes a loop is also
     meshed (``phase_mesh``); the third value returned is then the
-    mesher's launch counts, else None."""
+    mesher's launch counts, else None. The manager's predicates and
+    decision at every keyframe go into ``RUNS`` (``record_decisions``)."""
     import torch
     from mipsfusion_tpu_torch.config import flagship_outback
     from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
@@ -994,6 +1026,7 @@ def phase_outback(n_frames: int = 200, seed: int = 0, spawn=None,
     slam = MIPSFusionTorch(cfg, dataset=ds, device=dev)
     if trace or spawn is not None:
         trace_outback(slam, ds, spawn)
+    decisions = record_decisions(slam)
     torch.cuda.reset_peak_memory_stats()
     res, counts, wall = _run_path(slam)
     ate = res["absolute_translational_error.rmse"]
@@ -1006,6 +1039,10 @@ def phase_outback(n_frames: int = 200, seed: int = 0, spawn=None,
     print(f"outback launches {counts}  stage calls {calls}")
     print("outback stage ms (CUDA events, mean per call): "
           + json.dumps({k: round(v, 3) for k, v in slam.stage_ms().items()}))
+    RUNS[("outback", seed)] = {"ate": ate, "fps": res["fps"],
+                               "stage_ms": slam.stage_ms(),
+                               "switches": list(slam.switch_events),
+                               "decisions": decisions}
     st = slam.state
     used = res["n_submaps"]
     anchors = st.kf_c2w[st.localMLP_first_kf[:used]].cpu().numpy()
@@ -1023,6 +1060,7 @@ def phase_outback(n_frames: int = 200, seed: int = 0, spawn=None,
                  for k in ("switch_back", "switch_ba", "pgo"))
     print(f"outback seed {seed}: loop closed (switch back, switch BA, PGO): "
           f"{closed}")
+    RUNS[("outback", seed)]["closed"] = closed
     mesh_counts = None
     if closed:
         switch_ba_alone(slam, ds)
@@ -1856,6 +1894,10 @@ def record_label(rows, name, label, errs, fn, plain_ms, n, kind, shape):
 # BA and PGO run.
 OUTBACK_SEEDS = (0, 1, 2)
 
+# each SLAM run's ATE, FPS and stage times by phase ("orbit"; ("outback",
+# seed)), for phase 14's bounds against the unsharded runs
+RUNS = {}
+
 
 def phase_outbacks(seeds=OUTBACK_SEEDS):
     """The outback once per seed, the first run that closes a loop (the
@@ -1872,6 +1914,82 @@ def phase_outbacks(seeds=OUTBACK_SEEDS):
               "(switch back with switch BA and PGO)")
     return ({s: counts for s, counts, _ in runs}, closing[0], mesh_counts,
             {s: closed for s, _, closed in runs})
+
+
+def record_decisions(slam):
+    """Record the manager's predicates and decision at every keyframe of
+    a run, as the run goes: a list of dicts (frame; the active submap
+    after it; flag 3 new submap, 1 switch, 2 bound; the predicates; the
+    submaps in use; whether the decision was forced, a switch being too
+    recent; the keyframe's world position and rotation; ``boxes``, the
+    active submap's box before the decision with the manager's floor on
+    its lengths, and the expanded box without; ``pts`` and ``valid``, the
+    world points of the manager's pixel grid that its containment test
+    counts)."""
+    import torch
+    from mipsfusion_tpu_torch.ops.geometry import rays_to_world
+    mgr = slam.manager
+    pred_fn, frame_fn = mgr._predicates, slam.process_frame
+    decide_fn = mgr.process_keyframe
+    floor = mgr.min_cr_len.cpu().numpy()
+    out, last = [], {}
+
+    def process_keyframe(*args, force=False, **kw):
+        last["force"] = force
+        return decide_fn(*args, force=force, **kw)
+
+    def predicates(st_, depth, rays_d, pose_local, wait_id):
+        p = pred_fn(st_, depth, rays_d, pose_local, wait_id)
+        rec = {k: float(p[k]) for k in ("cr_active", "cr_active_new",
+                                        "cr_mo", "cr_wait")}
+        info = np.asarray(p["localMLP_info"])
+        pose = np.asarray(p["pose_world"])
+        box = info[st_.active_submap_id, 1:7]
+        d = depth[mgr.cr_rows, mgr.cr_cols][:, None]
+        o, dirs = rays_to_world(rays_d[mgr.cr_rows, mgr.cr_cols],
+                                torch.as_tensor(pose, device=depth.device))
+        rec.update(mo_id=int(p["mo_id"]), used=int(info[:, 0].sum()),
+                   xyz=pose[:3, 3].astype(np.float64),
+                   rot=pose[:3, :3].astype(np.float64),
+                   boxes=((box[:3], box[3:], floor),
+                          (np.asarray(p["new_center"]),
+                           np.asarray(p["new_len"]), np.zeros_like(floor))),
+                   pts=(o + dirs * d).cpu().numpy(),
+                   valid=(d[:, 0] > 0.0).cpu().numpy())
+        last.update(rec)
+        return p
+
+    def process_frame(i):
+        last.clear()
+        n_ev = len(slam.switch_events)
+        frame_fn(i)
+        if last and i % slam.keyframe_every == 0:
+            out.append({"frame": i, "active": slam.active_id,
+                        "flag": slam.switch_events[-1][1]
+                        if len(slam.switch_events) > n_ev else 2, **last})
+
+    mgr._predicates, mgr.process_keyframe = predicates, process_keyframe
+    slam.process_frame = process_frame
+    return out
+
+
+def containment_band(rec, eps: float):
+    """The quantity the manager holds to min_containing_ratio at a
+    recorded keyframe (``record_decisions``), the larger of the active
+    and the expanded box's containment ratio, with every face of both
+    boxes moved in by ``eps`` metres and out by ``eps``: [in, out]."""
+    pts, valid = rec["pts"], rec["valid"]
+    n_valid = max(int(valid.sum()), 1)
+    band = []
+    for sgn in (-1.0, 1.0):
+        ratios = []
+        for center, length, floor in rec["boxes"]:
+            ln = np.maximum(length + np.float32(2.0 * eps * sgn), floor)
+            lo, hi = center - 0.5 * ln, center + 0.5 * ln
+            inside = ((pts > lo) & (pts < hi)).all(-1) & valid
+            ratios.append(int(inside.sum()) / n_valid)
+        band.append(max(ratios))
+    return band
 
 
 def trace_outback(slam, ds, spawn=None):
@@ -1993,6 +2111,218 @@ def outback_seeds(seeds, spawn=None):
         _fail(f"outback failed for seeds {failed}")
 
 
+# phase 14's bounds against the unsharded runs: the JAX package's own
+# between its sharded and unsharded systems (tests/test_sharded_ba.py:104,
+# tests/test_sharded_whole_system.py:110)
+SHARDED_ORBIT_DATE = 0.005
+SHARDED_OUTBACK_DATE = 0.02
+
+
+def sharded_mesh():
+    """Every card when there are two or more, else the virtual mesh
+    ["cuda:0", "cuda:0"] (every line of the sharded path; its copies
+    between devices are no-ops)."""
+    import torch
+    from mipsfusion_tpu_torch.parallel.sharding import make_mesh
+    n = torch.cuda.device_count()
+    mesh = (make_mesh() if n >= 2
+            else make_mesh(devices=["cuda:0", "cuda:0"]))
+    print(f"sharded: {mesh} ("
+          + ("every card" if n >= 2 else "virtual: one card, two shards")
+          + ")")
+    return mesh
+
+
+def _sharded_run(cfg, ds, mesh):
+    """One run of the system on ``mesh``; returns (slam, results, counts,
+    wall s)."""
+    import torch
+    from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
+    slam = MIPSFusionTorch(cfg, dataset=ds, device=torch.device("cuda"),
+                           mesh=mesh)
+    return (slam,) + _run_path(slam)
+
+
+def phase_sharded(seeds=OUTBACK_SEEDS, n_orbit: int = 45):
+    """Phase 14: the multi-device path on ``sharded_mesh()``. The orbit
+    of phase 5 with parallel.dp_hot_path (RO, GO, BA and the first fit
+    split over the mesh, budgets rounded), twice, the same bits; then the
+    outback of phase 6 with both switches on (every inactive submap
+    refined in one step, slot s on mesh device s % n) at phase 6's first
+    loop-closing seed. Each ATE within the JAX package's sharded-test
+    bound of the unsharded run's (phases 5 and 6; run here when absent),
+    K1-K4 launched on every device of the mesh and K0 never, stage ms and
+    FPS beside the unsharded run's. A sharded outback that does not close
+    a loop must have parted from the unsharded run's decisions at a
+    keyframe where the containment test turns on the distance between the
+    runs (``branch_point``); the next closing seed is then run. Returns the
+    loop-closing run's (counts, per-device counts)."""
+    mesh = sharded_mesh()
+    sharded_orbit(mesh, n_orbit)
+    tried = []
+    for seed in seeds:
+        key = ("outback", seed)
+        if key not in RUNS:
+            phase_outback(seed=seed)
+        if not RUNS[key]["closed"]:
+            continue
+        closed, counts, by_dev, decisions, cfg = sharded_outback(mesh, seed)
+        tried.append(seed)
+        if closed:
+            return counts, by_dev
+        branch_point(seed, RUNS[key]["decisions"], decisions,
+                     cfg.min_containing_ratio)
+    _fail(f"sharded outback: no run of the closing seeds {tried} closed a "
+          "loop")
+
+
+def branch_point(seed: int, one, sharded, threshold: float):
+    """Where a sharded run's manager decided a keyframe otherwise than the
+    unsharded run's (the first keyframe whose active submap or flag
+    differs), and why. Prints, at every keyframe up to it, both runs'
+    containment ratios and how far apart their active boxes, keyframe
+    poses and counted points lie. Fails unless the decision there was not
+    forced, the two runs' boxes and points (the median point) lie closer
+    than SHARDED_OUTBACK_DATE, and in both runs moving the boxes' faces
+    by as much as the runs lie apart carries the containment ratio across
+    ``threshold`` (min_containing_ratio) (``containment_band``): a
+    perturbation the size of the one measured between the runs decides
+    the branch."""
+    k = next((j for j, (a, b) in enumerate(zip(one, sharded))
+              if (a["frame"], a["active"], a["flag"])
+              != (b["frame"], b["active"], b["flag"])), None)
+    if k is None:
+        _fail(f"sharded outback seed {seed}: no switch back, yet the "
+              "manager decided every keyframe as the unsharded run did")
+    for a, b in zip(one[:k + 1], sharded):
+        both = a["valid"] & b["valid"]
+        moved = np.linalg.norm(a["pts"] - b["pts"], axis=-1)[both]
+        box_a, box_b = (np.concatenate(r["boxes"][0][:2]) for r in (a, b))
+        # the typical perturbation: how far the boxes' faces and the
+        # counted points (their median) lie apart
+        apart = max(float(np.abs(box_a - box_b).max()),
+                    float(np.median(moved)) if moved.size else 0.0)
+        dR = a["rot"].T @ b["rot"]
+        print(f"sharded outback seed {seed} keyframe " + json.dumps({
+            "frame": a["frame"], "flag": [a["flag"], b["flag"]],
+            "force": [a["force"], b["force"]],
+            "cr_active": [round(a["cr_active"], 6), round(b["cr_active"], 6)],
+            "cr_active_new": [round(a["cr_active_new"], 6),
+                              round(b["cr_active_new"], 6)],
+            "recomputed": [round(containment_band(r, 0.0)[0], 6)
+                           for r in (a, b)],
+            "apart_mm": round(1e3 * apart, 4),
+            "pts_apart_max_mm": round(1e3 * float(moved.max(initial=0.0)),
+                                      4),
+            "pos_apart_mm": round(1e3 * float(np.linalg.norm(
+                a["xyz"] - b["xyz"])), 4),
+            "rot_apart_mrad": round(1e3 * float(np.arccos(np.clip(
+                (np.trace(dR) - 1) / 2, -1, 1))), 4),
+            "band_1mm": [np.round(containment_band(r, 1e-3), 4).tolist()
+                         for r in (a, b)],
+            "band_apart": [np.round(containment_band(r, apart), 4).tolist()
+                           for r in (a, b)]}))
+    a, b = one[k], sharded[k]
+    bands = [containment_band(r, apart) for r in (a, b)]
+    why = (f"the runs parted at frame {a['frame']} (flags {a['flag']} and "
+           f"{b['flag']}) with boxes and counted points (median) "
+           f"{1e3 * apart:.4f} mm apart; with the faces moved by that the "
+           f"containment ratio spans {np.round(bands[0], 4).tolist()} and "
+           f"{np.round(bands[1], 4).tolist()} against {threshold}")
+    if (a["force"] or b["force"] or not apart < SHARDED_OUTBACK_DATE
+            or not all(lo < threshold <= hi for lo, hi in bands)):
+        _fail(f"sharded outback seed {seed}: no switch back, and the branch "
+              f"is not the containment test's: {why}")
+    print(f"sharded outback seed {seed}: no switch back; {why}; next "
+          "closing seed")
+
+
+def sharded_orbit(mesh, n_orbit: int):
+    import torch
+    from mipsfusion_tpu_torch.config import flagship_orbit
+    from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
+    if "orbit" not in RUNS:
+        phase_slam(n_orbit)
+    cfg = flagship_orbit(use_manager=False)
+    cfg["data"]["output"] = None
+    cfg["parallel"] = {"dp_hot_path": True, "sharded_refine": True}
+    ds = SyntheticDataset(cfg, n_frames=n_orbit, trajectory="orbit",
+                          span=n_orbit / 200.0, device=torch.device("cuda"))
+    slam, res, counts, wall = _sharded_run(cfg, ds, mesh)
+    ate, ref = res["absolute_translational_error.rmse"], RUNS["orbit"]
+    print(f"sharded orbit: {n_orbit} frames  ATE RMSE {ate * 1000:.2f} mm "
+          f"(1 shard {ref['ate'] * 1000:.2f})  tracked FPS {res['fps']:.2f} "
+          f"(1 shard {ref['fps']:.2f})  wall {wall:.1f} s  launches {counts}")
+    print("sharded orbit stage ms (CUDA events, mean per call; 1 shard / "
+          f"{mesh.size} shards): " + json.dumps({
+              k: [round(ref["stage_ms"][k], 3), round(v, 3)]
+              for k, v in slam.stage_ms().items() if k in ref["stage_ms"]}))
+    if not slam.use_dp_hot:
+        _fail("sharded orbit: dp_hot_path is not on")
+    if not abs(ate - ref["ate"]) < SHARDED_ORBIT_DATE:
+        _fail(f"sharded orbit ATE {ate:.4f} m vs {ref['ate']:.4f} m "
+              f"unsharded: apart by {SHARDED_ORBIT_DATE} m or more")
+    again = _sharded_run(cfg, ds, mesh)[0]
+    same("sharded orbit twice", (slam.state.est_c2w,
+                                 slam.field.params(detach=True)),
+         (again.state.est_c2w, again.field.params(detach=True)))
+
+
+def sharded_outback(mesh, seed: int):
+    """The outback at ``seed`` with both switches on: every bound of
+    phase 14 but the switch back checked against phase 6's run of the
+    seed; returns (closed a loop, counts, per-device counts, the
+    manager's decisions, its config)."""
+    import torch
+    from mipsfusion_tpu_torch.config import flagship_outback
+    from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
+    ref = RUNS[("outback", seed)]
+    cfg = flagship_outback(use_manager=True, seed=seed)
+    cfg["data"]["output"] = None
+    cfg["parallel"] = {"dp_hot_path": True, "sharded_refine": True}
+    ds = SyntheticDataset(cfg, n_frames=200, trajectory="outback", span=1.0,
+                          device=torch.device("cuda"))
+    slam = MIPSFusionTorch(cfg, dataset=ds, device=torch.device("cuda"),
+                           mesh=mesh)
+    decisions = record_decisions(slam)
+    res, counts, wall = _run_path(slam)
+    by_dev = fc.launch_counts(by_device=True)
+    ate = res["absolute_translational_error.rmse"]
+    stage = slam.stage_ms()
+    log = slam.sharded_refine_log
+    print(f"sharded outback: seed {seed}  ATE RMSE {ate * 1000:.2f} mm "
+          f"(1 shard {ref['ate'] * 1000:.2f})  tracked FPS {res['fps']:.2f} "
+          f"(1 shard {ref['fps']:.2f})  wall {wall:.1f} s  submaps "
+          f"{res['n_submaps']}  switches {slam.switch_events} (1 shard "
+          f"{ref['switches']})  sharded refines {len(log)} (slots of the "
+          f"last: {log[-1][1] if log else None})")
+    print(f"sharded outback launches {counts}  by device {by_dev}")
+    print("sharded outback stage ms (CUDA events, mean per call; 1 shard / "
+          f"{mesh.size} shards): " + json.dumps({
+              k: [round(ref["stage_ms"].get(k, float("nan")), 3),
+                  round(stage.get(k, float("nan")), 3)]
+              for k in ("track", "ba", "refine", "init_chunk")}))
+    if not ate < 0.03:
+        _fail(f"sharded outback ATE {ate:.4f} m >= 0.03 m")
+    if not abs(ate - ref["ate"]) < SHARDED_OUTBACK_DATE:
+        _fail(f"sharded outback ATE {ate:.4f} m vs {ref['ate']:.4f} m "
+              f"unsharded: apart by {SHARDED_OUTBACK_DATE} m or more")
+    if res["n_submaps"] < 2:
+        _fail(f"sharded outback n_submaps {res['n_submaps']} < 2")
+    if not log:
+        _fail("sharded outback: no sharded refine ran")
+    devices = sorted({d.index for d in mesh.devices})
+    missing = [(k, d) for k in SLAM_KERNELS for d in devices
+               if by_dev[k].get(d, 0) <= 0]
+    if missing or counts["encode_forward"]:
+        _fail(f"sharded outback: kernels not launched on a mesh device "
+              f"{missing}, or K0 launched {counts['encode_forward']} times")
+    return (any(flag == 1 for _, flag in slam.switch_events), counts, by_dev,
+            decisions, slam.manager.cfg)
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2020,16 +2350,24 @@ def main(argv=None):
     ap.add_argument("--consistency-only", action="store_true",
                     help="phases 1-2, then only phase 13 (the consistency "
                          "outback at seed 0) and its kernel labels")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="phases 1-2, then only phase 14 (the orbit and the "
+                         "outback on the sharded mesh, against their "
+                         "unsharded runs)")
     args = ap.parse_args(argv)
     if args.outback_seeds is not None:
         outback_seeds([int(s) for s in args.outback_seeds.split(",")],
                       args.outback_spawn)
         return 0
     if (args.scale_only or args.stress_only or args.hash_only
-            or args.consistency_only):
+            or args.consistency_only or args.sharded_only):
         phase_device()
         phase_build(check_hmma=False)
-        if args.scale_only:
+        if args.sharded_only:
+            counts, by_dev = phase_sharded()
+            print(json.dumps({"launches_sharded": counts,
+                              "launches_sharded_by_device": by_dev}))
+        elif args.scale_only:
             print(json.dumps({"launches_scale": phase_scale(
                 trace=args.scale_trace)}))
         elif args.stress_only:
@@ -2073,17 +2411,20 @@ def main(argv=None):
     closing_seed = next(s_ for s_ in OUTBACK_SEEDS if closed_seeds[s_])
     cons_stage, cons_run, cons_sizes = phase_consistency(closing_seed)
     phase_consistency_kernels(rows, cons_sizes)
+    sharded_counts, sharded_by_dev = phase_sharded()
     # K0 has no SLAM caller (as triplane_encode_pallas has none in the JAX
     # package): no loop may launch it
     k0_loops = [orbit_counts["encode_forward"], cp_counts["encode_forward"],
                 scale_counts["encode_forward"],
                 stress_off["encode_forward"],
                 stress_counts["encode_forward"],
-                cons_run["encode_forward"]] + [
+                cons_run["encode_forward"],
+                sharded_counts["encode_forward"]] + [
         c["encode_forward"] for c in by_seed.values()]
     if any(k0_loops):
         _fail(f"K0 launched by a SLAM loop (orbit, cp profile, scale, "
-              f"stress off and on, consistency, outbacks): {k0_loops}")
+              f"stress off and on, consistency, sharded outback, "
+              f"outbacks): {k0_loops}")
     kernels = []
     for name, r in rows.items():
         on_path = name in SLAM_KERNELS
@@ -2113,6 +2454,9 @@ def main(argv=None):
             "launches_hash": hash_counts[name],
             "launches_consistency": cons_stage[name],
             "launches_consistency_run": cons_run[name],
+            # the sharded outback (phase 14), in all and per CUDA device
+            "launches_sharded": sharded_counts[name],
+            "launches_sharded_by_device": sharded_by_dev[name],
             "slam_caller": on_path,
             "max_abs_err": r["max_abs_err"],
             # "ms", "plain_ms" and the bound at the first shape measured

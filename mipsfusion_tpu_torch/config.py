@@ -290,6 +290,29 @@ def load_config(path: str,
     return cfg
 
 
+# the multi-device switches and the JAX system's defaults; they act only
+# when the system's mesh has more than one device
+PARALLEL_DEFAULTS = {"sharded_refine": True, "dp_hot_path": True}
+
+
+def parallel_config(cfg: Dict[str, Any]) -> Dict[str, bool]:
+    """The config's ``parallel:`` block as a mapping of bools, defaults
+    filled in: ``dp_hot_path`` (ray data-parallelism in tracking, local
+    BA and the first fits) and ``sharded_refine`` (every inactive submap
+    refined in one step). Raises on another key or a value that is not a
+    bool."""
+    block = cfg.get("parallel") or {}
+    if not isinstance(block, dict):
+        raise ValueError(f"parallel: expected a mapping, got {block!r}")
+    out = dict(PARALLEL_DEFAULTS)
+    for k, v in block.items():
+        if k not in out or not isinstance(v, bool):
+            raise ValueError(f"parallel.{k}: {v!r}; the block takes "
+                             f"{sorted(out)} as booleans")
+        out[k] = v
+    return out
+
+
 def apply_overrides(cfg: Dict[str, Any],
                     overrides: Dict[str, Any]) -> Dict[str, Any]:
     """A copy of ``cfg`` with dotted-path overrides applied, e.g.

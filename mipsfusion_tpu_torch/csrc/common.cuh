@@ -55,6 +55,24 @@ struct FieldShape {
   static_assert(NS == 3 || R2 == 0, "R2 is unused with 2 scales");
 };
 
+// A kernel's raised dynamic shared-memory limit (cudaFuncSetAttribute) is
+// a property of the current device: a launch on another device needs it
+// set there too. `set` runs once per device ordinal; `done` is the
+// caller's static table of devices already set.
+constexpr int MAX_DEVICES = 64;
+
+template <class Set>
+cudaError_t once_per_device(bool (&done)[MAX_DEVICES], Set set) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  if ((e = set()) != cudaSuccess) return e;
+  done[dev] = true;
+  return cudaSuccess;
+}
+
 // The pointers of one field's encoding tables (s[2] null with 2 scales).
 struct Planes {
   const float* s[3];

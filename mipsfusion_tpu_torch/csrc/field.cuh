@@ -520,15 +520,13 @@ int decoder_backward(const float* x, const float* g, const float* embed,
                      int weight_grads, cudaStream_t st) {
   using K = K2Layout<Sh>;
   if (n <= 0) return (int)cudaSuccess;
-  static bool attr_set = false;
-  cudaError_t e;
-  if (!attr_set) {
-    if ((e = set_smem(decoder_bwd_kernel<Sh, false>, K::SMEM)) !=
-            cudaSuccess ||
-        (e = set_smem(decoder_bwd_kernel<Sh, true>, K::SMEM)) != cudaSuccess)
-      return (int)e;
-    attr_set = true;
-  }
+  static bool attr_set[MAX_DEVICES] = {};
+  cudaError_t e = once_per_device(attr_set, [] {
+    cudaError_t r = set_smem(decoder_bwd_kernel<Sh, false>, K::SMEM);
+    return r != cudaSuccess ? r
+                            : set_smem(decoder_bwd_kernel<Sh, true>, K::SMEM);
+  });
+  if (e != cudaSuccess) return (int)e;
   transpose_weights_kernel<Sh><<<(HID * HID + 255) / 256, 256, 0, st>>>(dw,
                                                                         wt);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;

@@ -446,14 +446,13 @@ template <class Sh, bool SDF_ONLY, bool RET_EMBED>
 cudaError_t launch_k1(const float* x, int n, Planes P, const float* packed,
                       float* out, float* embed, int sms, cudaStream_t st) {
   constexpr int smem = K1Layout<Sh>::SMEM;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        field_forward_kernel<Sh, SDF_ONLY, RET_EMBED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static bool attr_set[MAX_DEVICES] = {};
+  cudaError_t e = once_per_device(attr_set, [] {
+    return cudaFuncSetAttribute(field_forward_kernel<Sh, SDF_ONLY, RET_EMBED>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                K1Layout<Sh>::SMEM);
+  });
+  if (e != cudaSuccess) return e;
   const int n_tiles = (n + K1_BP - 1) / K1_BP;
   const int need = (n_tiles + K1_WARPS - 1) / K1_WARPS;
   const int grid = need < sms ? need : sms;

@@ -13,6 +13,12 @@ raw outputs [5 + C, N, S]. The field's encoding is ``FieldConfig.enc``:
     decoder in plain torch on every device, as in the JAX package (which
     has no kernel for it), float32 with TF32 off.
 
+Over a mesh of devices (``parallel/sharding.py``), the loss of a ray batch
+split in shards is ``forward_losses_T_sharded``: each shard renders its
+rays where they lie and sends back only its partial sums
+(``loss_sums_T``), from which ``losses_from_sums`` forms the terms; RO's
+sdf queries split by columns (``run_network_sdf_T_sharded``).
+
 Field parameters are a tree in the JAX layout, ``{"planes": {"s0",
 "s1"(, "s2"), "cp"}, "decoder": {layer: {"w", "b"}}}`` or ``{"hash":
 [L, T, F], "decoder": ...}``; ``Field`` holds them as ``nn.Parameter``s.
@@ -21,7 +27,7 @@ Field parameters are a tree in the JAX layout, ``{"planes": {"s0",
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -30,7 +36,9 @@ from ..ops.encoding import (FrequencyConfig, HashGridConfig, TriplaneConfig,
                             frequency_encode, hash_encode, init_hash_table,
                             init_triplane)
 from ..ops.field_cuda import field_forward, field_query_T
-from ..ops.losses import compute_loss, get_sdf_loss_T, mse2psnr
+from ..ops.losses import (compute_loss, emd_terms, get_masks, get_sdf_loss_T,
+                          mse2psnr)
+from ..parallel.sharding import split
 from .decoder import LAYERS, DecoderConfig, decoder_apply, init_decoder
 
 ENCODINGS = ("HashGrid", "Triplane")
@@ -314,6 +322,120 @@ def forward_losses_T(params: Dict, rays_oT: torch.Tensor,
             "rgb_loss": rgb_loss, "depth_loss": depth_loss,
             "sdf_loss": sdf_loss, "fs_loss": fs_loss,
             "psnr": mse2psnr(rgb_loss)}
+
+
+# ---------------------------------------------------------------------------
+# The sharded loss: each shard's partial sums, the losses from their total
+# ---------------------------------------------------------------------------
+
+# the partial sums and counts of one shard, in the order loss_sums_T
+# stacks them
+SUM_TERMS = ("rgb", "depth", "n_valid", "fs", "sdf", "n_fs", "n_sdf",
+             "fs_emd", "sdf_emd")
+
+
+def loss_sums_T(rend: Dict, target_rgbT: torch.Tensor,
+                target_d: torch.Tensor, cfg: FieldConfig,
+                emd_w: float = 0.01) -> torch.Tensor:
+    """One shard's share of ``forward_losses_T``'s terms: every sum over
+    its rays and samples, and the counts its means and weights divide by
+    (``SUM_TERMS``; the EMD sums only when emd_w > 0), one vector."""
+    td = target_d[..., 0]
+    valid = (td > 0.0) & (td < cfg.depth_trunc)
+    validf = valid.to(td.dtype)
+    rgb_weight = torch.where(valid[None], torch.ones_like(validf),
+                             torch.full_like(validf, cfg.rgb_missing))
+    z_vals, sdf = rend["z_vals"], rend["rawT"][3]
+    trunc = cfg.trunc * cfg.sc_factor
+    front, sdf_mask, _, _ = get_masks(z_vals, target_d, trunc)
+    sums = [((rend["rgbT"] * rgb_weight - target_rgbT * rgb_weight) ** 2
+             ).sum(),
+            (((rend["depth"] - td) ** 2) * validf).sum(), validf.sum(),
+            ((sdf * front - front) ** 2).sum(),
+            (((z_vals + sdf * trunc) * sdf_mask - target_d * sdf_mask) ** 2
+             ).sum(),
+            torch.count_nonzero(front).to(td.dtype),
+            torch.count_nonzero(sdf_mask).to(td.dtype)]
+    if emd_w > 0:
+        fs_all, sdf_all = emd_terms(z_vals, target_d, front, sdf_mask,
+                                    rend["rawT"][5:], trunc,
+                                    cfg.decoder.n_class)
+        sums += [fs_all.sum(), sdf_all.sum()]
+    return torch.stack(sums)
+
+
+def losses_from_sums(sums: torch.Tensor, n_rays: int, n_samples: int,
+                     emd_w: float = 0.01) -> Dict:
+    """``forward_losses_T``'s loss terms from the total of every shard's
+    ``loss_sums_T``: the means over all 3N colours and all N x S samples,
+    the depth term's mean over the valid rays, the free-space and band
+    weights from the global counts."""
+    s = dict(zip(SUM_TERMS, sums))
+    n_pts = n_rays * n_samples
+    rgb_loss = s["rgb"] / (3 * n_rays)
+    num = s["n_fs"] + s["n_sdf"]
+    fs_loss = s["fs"] / n_pts * (1.0 - s["n_fs"] / num)
+    sdf_loss = s["sdf"] / n_pts * (1.0 - s["n_sdf"] / num)
+    if emd_w > 0:
+        fs_loss = fs_loss + s["fs_emd"] / n_pts / 250.0 * emd_w
+        sdf_loss = sdf_loss + s["sdf_emd"] / n_pts / 5000.0 * emd_w
+    return {"rgb_loss": rgb_loss,
+            "depth_loss": s["depth"] / torch.clamp(s["n_valid"], min=1.0),
+            "sdf_loss": sdf_loss, "fs_loss": fs_loss,
+            "psnr": mse2psnr(rgb_loss)}
+
+
+def forward_losses_T_sharded(params_reps: Sequence[Dict],
+                             rays_oT: Sequence[torch.Tensor],
+                             rays_dT: Sequence[torch.Tensor],
+                             target_rgbT: Sequence[torch.Tensor],
+                             target_d: Sequence[torch.Tensor],
+                             cfg: FieldConfig,
+                             consts_reps: Sequence[FieldConsts],
+                             emd_w: float = 0.01,
+                             generator: Optional[torch.Generator] = None,
+                             u: Optional[torch.Tensor] = None) -> Dict:
+    """``forward_losses_T``'s loss terms over a batch split in shards:
+    shard k's rays ([3, N_k], targets [3, N_k] and [N_k, 1]) and its
+    replicas of the params and consts lie on one device, and the first
+    shard's device is the primary one. The z perturbation u [N, S] is
+    drawn once for the whole batch on the primary device (as the
+    unsharded path draws it) and each shard gets its slice; each shard
+    renders its rays, and only its vector of partial sums comes back to
+    the primary device. The terms and their gradients match the
+    unsharded call's up to the order of the sums."""
+    primary = target_d[0].device
+    sizes = [t.shape[0] for t in target_d]
+    n = sum(sizes)
+    n_samples = cfg.n_range_d + max(cfg.n_samples_d, 0)   # sample_z_vals'
+    us = [None] * len(sizes)
+    if cfg.perturb:
+        if u is None:
+            u = torch.rand((n, n_samples), generator=generator,
+                           device=primary, dtype=target_d[0].dtype)
+        us = [b.to(t.device) for b, t in zip(u.split(sizes), target_d)]
+    total = None
+    for k in range(len(sizes)):
+        rend = render_rays_T(params_reps[k], rays_oT[k], rays_dT[k],
+                             target_d[k], cfg, consts_reps[k], u=us[k])
+        sums = loss_sums_T(rend, target_rgbT[k], target_d[k], cfg,
+                           emd_w).to(primary)
+        total = sums if total is None else total + sums
+    return losses_from_sums(total, n, n_samples, emd_w)
+
+
+def run_network_sdf_T_sharded(params_reps: Sequence[Dict], ptsT: torch.Tensor,
+                              cfg: FieldConfig,
+                              consts_reps: Sequence[FieldConsts],
+                              devices: Sequence[torch.device]
+                              ) -> torch.Tensor:
+    """``run_network_sdf_T`` with the points [3, N] split by columns over
+    ``devices`` (params and consts replicated there); the sdf [N] is
+    gathered on the points' device."""
+    out = [run_network_sdf_T(p, x, cfg, c).to(ptsT.device)
+           for p, x, c in zip(params_reps, split(ptsT, devices, 1),
+                              consts_reps)]
+    return torch.cat(out)
 
 
 class LossWeights(NamedTuple):

@@ -31,6 +31,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -511,9 +512,24 @@ def ptr(t, name: str, shape=None) -> int:
     return t.data_ptr()
 
 
-def stream() -> int:
+def stream(device) -> int:
+    """The current stream of ``device`` (the tensor's device, not the
+    current one) as the kernels take it."""
     import torch
-    return torch.cuda.current_stream().cuda_stream
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(fn, device) -> None:
+    """One more launch of a kernel wrapper ``fn``, in total (``launches``)
+    and on the device's ordinal (``launches_by_device``). Autograd runs
+    each device's backward on its own thread, hence the lock."""
+    with _count_lock:
+        fn.launches += 1
+        fn.launches_by_device[device.index] = \
+            fn.launches_by_device.get(device.index, 0) + 1
 
 
 _encode_args = {}

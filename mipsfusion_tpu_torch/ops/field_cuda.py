@@ -8,7 +8,9 @@ replaces ``field_query_pallas``, ``decoder_backward`` replaces
 PyTorch version and a CUDA tensor with its kernel (K1
 ``csrc/field_forward.cuh``, K2 ``csrc/field.cuh``) at the field's shape
 (one of ``_build.SHAPES``; any other shape raises);
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts kernel launches
+(``launches_by_device`` per device). A launch goes to the tensors'
+device, on that device's current stream.
 
 Field parameters are the JAX tree's layout:
 ``{"planes": {"s0", "s1"(, "s2"), "cp"}, "decoder": {layer: {"w", "b"}}}``.
@@ -160,8 +162,10 @@ def pack_decoder_weights(dec: Tree, shape) -> torch.Tensor:
     if w.device.type == "cpu":
         return pack_decoder_weights_plain(dec, shape)
     packed = torch.empty((shape.size("field_packed_size"),), device=w.device)
-    err = shape.fn("field_pack_weights")(*_dec_ptrs(dec, shape),
-                                         packed.data_ptr(), _build.stream())
+    with torch.cuda.device(w.device):
+        err = shape.fn("field_pack_weights")(*_dec_ptrs(dec, shape),
+                                             packed.data_ptr(),
+                                             _build.stream(w.device))
     _build.check(err, "pack_decoder_weights")
     return packed
 
@@ -198,12 +202,13 @@ def field_forward(xT: torch.Tensor, planes: Dict[str, torch.Tensor],
     # scratch for the weights in the kernel's fragment order
     packed = torch.empty((shape.size("field_packed_size"),),
                          device=xT.device)
-    err = shape.fn("field_forward")(
-        *args, packed.data_ptr(), _build.sm_count(xT.device), out.data_ptr(),
-        embed.data_ptr() if return_embed else None, int(sdf_only),
-        _build.stream())
+    with torch.cuda.device(xT.device):
+        err = shape.fn("field_forward")(
+            *args, packed.data_ptr(), _build.sm_count(xT.device),
+            out.data_ptr(), embed.data_ptr() if return_embed else None,
+            int(sdf_only), _build.stream(xT.device))
     _build.check(err, "field_forward")
-    field_forward.launches += 1
+    _build.count_launch(field_forward, xT.device)
     if sdf_only:
         field_forward.sdf_launches_by_n[N] = \
             field_forward.sdf_launches_by_n.get(N, 0) + 1
@@ -211,6 +216,7 @@ def field_forward(xT: torch.Tensor, planes: Dict[str, torch.Tensor],
 
 
 field_forward.launches = 0
+field_forward.launches_by_device = {}
 # K1's sdf-only launches by point count (RO's queries; the screen's two
 # stages differ in size)
 field_forward.sdf_launches_by_n = {}
@@ -261,12 +267,13 @@ def decoder_backward(xT: torch.Tensor, g: torch.Tensor, embed: torch.Tensor,
     grads = torch.empty((total,), device=dev) if weight_grads else wt
     d_x = torch.empty((3, N), device=dev)
     d_embed = torch.empty((shape.embed_dim, N), device=dev)
-    err = shape.fn("decoder_backward")(
-        *args, wt.data_ptr(), partials.data_ptr(), splits, d_x.data_ptr(),
-        d_embed.data_ptr(), grads.data_ptr(), int(weight_grads),
-        _build.stream())
+    with torch.cuda.device(dev):
+        err = shape.fn("decoder_backward")(
+            *args, wt.data_ptr(), partials.data_ptr(), splits,
+            d_x.data_ptr(), d_embed.data_ptr(), grads.data_ptr(),
+            int(weight_grads), _build.stream(dev))
     _build.check(err, "decoder_backward")
-    decoder_backward.launches += 1
+    _build.count_launch(decoder_backward, dev)
     decoder_backward.dw_launches += int(weight_grads)
     if not weight_grads:
         return d_x, d_embed, None
@@ -274,6 +281,7 @@ def decoder_backward(xT: torch.Tensor, g: torch.Tensor, embed: torch.Tensor,
 
 
 decoder_backward.launches = 0
+decoder_backward.launches_by_device = {}
 # the launches among them that also summed the weight gradients
 decoder_backward.dw_launches = 0
 
@@ -364,9 +372,15 @@ KERNEL_WRAPPERS = {
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+        fn.launches_by_device = {}
     field_forward.sdf_launches_by_n = {}
     decoder_backward.dw_launches = 0
 
 
-def launch_counts() -> Dict[str, int]:
+def launch_counts(by_device: bool = False) -> Dict:
+    """Each wrapper's kernel launches since the last reset: a count, or
+    with ``by_device`` a count per CUDA device ordinal."""
+    if by_device:
+        return {name: dict(fn.launches_by_device)
+                for name, fn in KERNEL_WRAPPERS.items()}
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}

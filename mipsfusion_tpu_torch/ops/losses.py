@@ -44,24 +44,31 @@ def get_sdf_loss_T(z_vals: torch.Tensor, target_d: torch.Tensor,
                    emd_w: float = 0.01):
     """z_vals / predicted_sdf [B, S], target_d [B, 1], class-major
     probabilities sdf_probT [C, B, S] -> (fs_loss, sdf_loss)."""
-    max_class_id = cate_num - 1
     front_mask, sdf_mask, fs_weight, sdf_weight = get_masks(
         z_vals, target_d, truncation)
     fs_loss = compute_loss(predicted_sdf * front_mask, front_mask) * fs_weight
     sdf_loss = compute_loss((z_vals + predicted_sdf * truncation) * sdf_mask,
                             target_d * sdf_mask) * sdf_weight
     if emd_w > 0:
-        idx = torch.arange(cate_num, dtype=z_vals.dtype,
-                           device=z_vals.device)[:, None, None]
-        fs_all = sdf_probT * (max_class_id - idx) * front_mask[None]
-        fs_loss1 = torch.mean(fs_all.sum(0)) / 250.0
-        gt_class = (((target_d - z_vals) + truncation)
-                    / (2.0 * truncation)) * max_class_id
-        sdf_all = torch.abs(gt_class[None] - idx) * sdf_mask[None] * sdf_probT
-        sdf_loss1 = torch.mean(sdf_all.sum(0)) / 5000.0
-        fs_loss = fs_loss + fs_loss1 * emd_w
-        sdf_loss = sdf_loss + sdf_loss1 * emd_w
+        fs_all, sdf_all = emd_terms(z_vals, target_d, front_mask, sdf_mask,
+                                    sdf_probT, truncation, cate_num)
+        fs_loss = fs_loss + torch.mean(fs_all) / 250.0 * emd_w
+        sdf_loss = sdf_loss + torch.mean(sdf_all) / 5000.0 * emd_w
     return fs_loss, sdf_loss
+
+
+def emd_terms(z_vals, target_d, front_mask, sdf_mask, sdf_probT,
+              truncation: float, cate_num: int):
+    """The EMD classification terms per sample [B, S] (free space, then
+    the truncation band), before their means and scalings."""
+    max_class_id = cate_num - 1
+    idx = torch.arange(cate_num, dtype=z_vals.dtype,
+                       device=z_vals.device)[:, None, None]
+    fs_all = sdf_probT * (max_class_id - idx) * front_mask[None]
+    gt_class = (((target_d - z_vals) + truncation)
+                / (2.0 * truncation)) * max_class_id
+    sdf_all = torch.abs(gt_class[None] - idx) * sdf_mask[None] * sdf_probT
+    return fs_all.sum(0), sdf_all.sum(0)
 
 
 # ---------------------------------------------------------------------------

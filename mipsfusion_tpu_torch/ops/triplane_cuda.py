@@ -8,7 +8,9 @@ and ``TriplaneEncode`` / ``triplane_encode`` the custom VJP of
 ``triplane_encode_pallas``. Each wrapper serves a CPU tensor with its
 plain PyTorch version and a CUDA tensor with the kernel in
 ``csrc/triplane.cuh`` at the field's shape (one of ``_build.SHAPES``;
-any other shape raises); ``<wrapper>.launches`` counts kernel launches.
+any other shape raises); ``<wrapper>.launches`` counts kernel launches
+(``launches_by_device`` per device). A launch goes to the tensors'
+device, on that device's current stream.
 
 The encode op takes and returns the reference's row layout (x [N, 3] ->
 [N, E]); K3 and K4 take points-minor arrays: x [3, N], d_embed [E, N].
@@ -52,15 +54,17 @@ def encode_forward(x: torch.Tensor, planes: Dict[str, torch.Tensor],
     N = x.shape[0]
     args = [_build.ptr(x, "x", (N, 3))] + plane_ptrs(planes, shape)
     out = torch.empty((N, shape.embed_dim), device=x.device)
-    err = shape.fn("encode_forward")(*args, N, out.data_ptr(),
-                                     *_build.encode_args(shape, x.device),
-                                     _build.stream())
+    plan = _build.encode_args(shape, x.device)
+    with torch.cuda.device(x.device):
+        err = shape.fn("encode_forward")(*args, N, out.data_ptr(), *plan,
+                                         _build.stream(x.device))
     _build.check(err, "encode_forward")
-    encode_forward.launches += 1
+    _build.count_launch(encode_forward, x.device)
     return out
 
 
 encode_forward.launches = 0
+encode_forward.launches_by_device = {}
 
 
 class TriplaneEncode(torch.autograd.Function):
@@ -176,15 +180,17 @@ def plane_backward(xT: torch.Tensor, d_embed: torch.Tensor,
     acc = torch.zeros((shape.size("plane_backward_acc_size"),),
                       dtype=torch.int64, device=dev)
     mx = torch.zeros((3,), dtype=torch.int32, device=dev)
-    err = shape.fn("plane_backward")(
-        *args, N, *d_planes, out["cp"].data_ptr(), acc.data_ptr(),
-        mx.data_ptr(), _build.stream())
+    with torch.cuda.device(dev):
+        err = shape.fn("plane_backward")(
+            *args, N, *d_planes, out["cp"].data_ptr(), acc.data_ptr(),
+            mx.data_ptr(), _build.stream(dev))
     _build.check(err, "plane_backward")
-    plane_backward.launches += 1
+    _build.count_launch(plane_backward, dev)
     return out
 
 
 plane_backward.launches = 0
+plane_backward.launches_by_device = {}
 
 
 # ----------------------------------------------------------------- K4 ----
@@ -252,12 +258,14 @@ def x_backward(xT: torch.Tensor, d_embed: torch.Tensor,
             + plane_ptrs(planes, shape))
     add = None if d_x_pe is None else _build.ptr(d_x_pe, "d_x_pe", (3, N))
     d_x = torch.empty((3, N), device=xT.device)
-    err = shape.fn("x_backward")(*args, N, add, d_x.data_ptr(),
-                                 _build.stream())
+    with torch.cuda.device(xT.device):
+        err = shape.fn("x_backward")(*args, N, add, d_x.data_ptr(),
+                                     _build.stream(xT.device))
     _build.check(err, "x_backward")
-    x_backward.launches += 1
+    _build.count_launch(x_backward, xT.device)
     return d_x
 
 
 x_backward.launches = 0
+x_backward.launches_by_device = {}
 

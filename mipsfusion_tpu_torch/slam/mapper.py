@@ -14,6 +14,10 @@ defaults).
 Random draws (ray sources, ray and pixel indices) come from a
 ``torch.Generator``; ``local_ba`` and ``switch_ba`` also take them passed
 in (``draws``), so tests can feed both packages the same draws.
+
+With a mesh of several devices (``parallel/sharding.py``), the first fits
+and local BA split each iteration's ray batch over it (JAX's
+``ray_sharding``); switch BA runs unsharded, as in JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch
 
 from ..models import scene_rep as sr
 from ..ops.geometry import matrix_to_quaternion, qt_to_matrix
+from ..parallel.sharding import (Mesh, make_sharded_map_step, ray_sharded,
+                                 replicate_params, split)
 from .tracker import MaskedAdam
 
 
@@ -66,20 +72,42 @@ def make_map_optimizer(field: sr.Field, mcfg: MapConfig) -> torch.optim.Adam:
     ], betas=(0.9, 0.99))
 
 
+def _ray_devices(mesh: Optional[Mesh], n: int):
+    """The devices a batch of n rays splits over, or None to run it
+    unsharded (no mesh, or a one-device mesh). n must divide."""
+    if mesh is None or mesh.size == 1:
+        return None
+    if n % mesh.size:
+        raise ValueError(f"{n} rays do not split over the {mesh.size} "
+                         "devices of the mesh (round the budget up)")
+    return ray_sharded(mesh).devices()
+
+
 def init_submap_fit(field: sr.Field, opt: torch.optim.Adam,
                     frame_rays: torch.Tensor, fcfg: sr.FieldConfig,
                     consts: sr.FieldConsts, mcfg: MapConfig,
                     lw: sr.LossWeights, n_iters: int, n_rays: int,
-                    generator: Optional[torch.Generator] = None
+                    generator: Optional[torch.Generator] = None,
+                    mesh: Optional[Mesh] = None,
+                    draws: Optional[Sequence[torch.Tensor]] = None
                     ) -> torch.Tensor:
     """Fit the field to one frame at the local identity pose (the frame is
-    the submap origin). frame_rays: [H*W, 7]. Returns the last loss."""
+    the submap origin). frame_rays: [H*W, 7]. Returns the last loss.
+    With a ``mesh`` of several devices each iteration's rays, drawn as
+    without, split over it (ray data-parallelism). ``draws``: each
+    iteration's ray indices."""
     loss = None
     n_total = frame_rays.shape[0]
-    for _ in range(n_iters):
-        idx = torch.randint(0, n_total, (n_rays,), generator=generator,
-                            device=frame_rays.device)
+    step = (make_sharded_map_step(mesh, fcfg, lw)
+            if _ray_devices(mesh, n_rays) is not None else None)
+    for i in range(n_iters):
+        idx = (draws[i] if draws is not None else torch.randint(
+            0, n_total, (n_rays,), generator=generator,
+            device=frame_rays.device))
         rays = frame_rays[idx]
+        if step is not None:
+            loss = step(field, opt, rays, consts, generator)
+            continue
         dirsT = rays[:, :3].T
         ret = sr.forward_losses_T(field.params(), torch.zeros_like(dirsT),
                                   dirsT, rays[:, 3:6].T, rays[:, 6:7], fcfg,
@@ -153,7 +181,8 @@ def local_ba(field: sr.Field, opt: torch.optim.Adam, kf_rays: torch.Tensor,
              n_total: int, generator: Optional[torch.Generator] = None,
              include_current: bool = True,
              optim_cur: Optional[bool] = None,
-             draws: Optional[Draws] = None) -> BAResult:
+             draws: Optional[Draws] = None,
+             mesh: Optional[Mesh] = None) -> BAResult:
     """Joint map + keyframe-pose BA over one submap's keyframes.
 
     kf_rays [K, R, 7] keyframe store; kf_mask [K] membership; first_kf
@@ -165,7 +194,10 @@ def local_ba(field: sr.Field, opt: torch.optim.Adam, kf_rays: torch.Tensor,
     accumulated over pose_accum_step iterations; the first keyframe and
     slots outside the mask stay frozen, the current frame too unless
     ``optim_cur`` (default ``mcfg.optim_cur``). ``draws``: per iteration
-    (source slot, keyframe ray index, current-frame ray index)."""
+    (source slot, keyframe ray index, current-frame ray index). With a
+    ``mesh`` of several devices each iteration's rays and their pose rows,
+    drawn as without, split over it with the field and the poses
+    replicated; the map and pose gradients land on the primary device."""
     K, R, _ = kf_rays.shape
     dev = kf_rays.device
     if optim_cur is None:
@@ -182,6 +214,7 @@ def local_ba(field: sr.Field, opt: torch.optim.Adam, kf_rays: torch.Tensor,
                      ).to(torch.float32)[:, None]
     accum = [torch.zeros_like(p) for p in pose_p]
     loss = None
+    devices = _ray_devices(mesh, n_total)
     for i in range(mcfg.iters):
         src, ray_idx, cur_idx = (draws[i] if draws is not None else _draw(
             w, n_total, (R, cur_rays.shape[0]), generator))
@@ -190,12 +223,16 @@ def local_ba(field: sr.Field, opt: torch.optim.Adam, kf_rays: torch.Tensor,
                            kf_rays[torch.clamp(src, max=K - 1), ray_idx])
         rot = pose_p[0].detach().requires_grad_(True)
         trans = pose_p[1].detach().requires_grad_(True)
-        T = pose_rows(qt_to_matrix(rot, trans), src)              # [N, 4, 4]
-        rays_dT = torch.einsum("nj,nij->in", rays[:, :3], T[:, :3, :3])
-        rays_oT = T[:, :3, 3].T
-        ret = sr.forward_losses_T(field.params(), rays_oT, rays_dT,
-                                  rays[:, 3:6].T, rays[:, 6:7], fcfg, consts,
-                                  generator=generator)
+        if devices is not None:
+            ret = _sharded_ba_losses(field, qt_to_matrix(rot, trans), rays,
+                                     src, fcfg, consts, generator, devices)
+        else:
+            T = pose_rows(qt_to_matrix(rot, trans), src)          # [N, 4, 4]
+            rays_dT = torch.einsum("nj,nij->in", rays[:, :3], T[:, :3, :3])
+            rays_oT = T[:, :3, 3].T
+            ret = sr.forward_losses_T(field.params(), rays_oT, rays_dT,
+                                      rays[:, 3:6].T, rays[:, 6:7], fcfg,
+                                      consts, generator=generator)
         loss = sr.total_loss(ret, lw)
         opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -208,6 +245,26 @@ def local_ba(field: sr.Field, opt: torch.optim.Adam, kf_rays: torch.Tensor,
     return BAResult(kf_quat=pose_p[0][:K], kf_trans=pose_p[1][:K],
                     cur_quat=pose_p[0][K], cur_trans=pose_p[1][K],
                     loss=loss.detach())
+
+
+def _sharded_ba_losses(field: sr.Field, poses: torch.Tensor,
+                       rays: torch.Tensor, src: torch.Tensor,
+                       fcfg: sr.FieldConfig, consts: sr.FieldConsts,
+                       generator, devices):
+    """One BA iteration's losses with the rays [N, 7] and their source
+    slots split over ``devices``: each shard takes its pose rows from its
+    replica of the poses [K + 1, 4, 4] and renders against its replica of
+    the field."""
+    rays_s, src_s = split(rays, devices), split(src, devices)
+    rays_oT, rays_dT = [], []
+    for r, sv, P in zip(rays_s, src_s, replicate_params(poses, devices)):
+        T = pose_rows(P, sv)
+        rays_dT.append(torch.einsum("nj,nij->in", r[:, :3], T[:, :3, :3]))
+        rays_oT.append(T[:, :3, 3].T)
+    return sr.forward_losses_T_sharded(
+        replicate_params(field.params(), devices), rays_oT, rays_dT,
+        [r[:, 3:6].T for r in rays_s], [r[:, 6:7] for r in rays_s], fcfg,
+        replicate_params(consts, devices), generator=generator)
 
 
 def switch_ba(params, kf_rays: torch.Tensor, kf_mask: torch.Tensor,

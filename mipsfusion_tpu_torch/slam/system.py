@@ -36,11 +36,19 @@ followed by the SDF-consistency global BA (``global_ba_consistency``): the
 anchors are refined so that two submaps agree on the SDF at the surface
 points of the keyframes bound to both.
 
-Left out (a later slice): sharded refinement.
+Over a mesh of several devices (``mesh=``; by default the system's
+device alone, since on the card several shards slow the host-bound loop)
+the ``parallel:`` switches act, as in the JAX system: ``dp_hot_path``
+rounds every ray budget up to a multiple of the mesh size and splits RO's
+queries, GO (the drift gate's polish too), the first fits and local BA
+over it; ``sharded_refine`` refines every inactive submap in one step,
+slot s on mesh device s % n (``_inactive_refine_sharded``). Switch BA,
+ICP, PGO, the consistency BA and the mesher stay on the primary device.
+With a one-device mesh nothing of that runs.
 
 Randomness: one ``torch.Generator`` per stage, reseeded from (config seed,
-stage, frame index or call count) at each use, so a run is reproducible
-on one device.
+stage, frame index or call count, and a sharded refine's slot) at each
+use, so a run is reproducible on one device.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..config import parallel_config
 from ..device import resolve_device
 from ..eval.ate import pose_evaluation, save_traj_tum
 from ..models import scene_rep as sr
@@ -61,6 +70,7 @@ from ..ops.geometry import (get_frame_surface_bbox, matrix_to_quaternion,
                             pose_inverse, project_to_pixel, pts_in_bbox,
                             qt_to_matrix, rays_to_world)
 from ..ops.losses import sdf_consistency_loss, surface_points_T
+from ..parallel.sharding import Mesh, replicate_params, slot_device
 from . import icp as icp_mod
 from . import manager as manager_mod
 from . import mapper, pose_graph, tracker
@@ -347,6 +357,26 @@ def overlap_verify_icp(st: SlamState, depth, rays_d, pose_world,
     return ver
 
 
+def refine_slots(inactive: List[int], n_devices: int, bind: np.ndarray,
+                 n_kf: int, active: int):
+    """The sharded refine's slots: the inactive submaps cycle-padded to a
+    multiple of n_devices (ids [mi]); per slot the keyframes it refines
+    (valid, bound to the slot's submap, not first-bound to the active
+    one; [mi, K] bools) and those it writes back (first-bound to its
+    submap; none for the padding slots at or beyond len(inactive))."""
+    mi = -(-len(inactive) // n_devices) * n_devices
+    ms = (inactive * mi)[:mi]
+    K = bind.shape[0]
+    valid = np.arange(K) < n_kf
+    ids = np.asarray(ms)[:, None]
+    kf_masks = (valid[None] & ((bind[None, :, 0] == ids)
+                               | (bind[None, :, 1] == ids))
+                & (bind[None, :, 0] != active))
+    wb_masks = (kf_masks & (bind[None, :, 0] == ids)
+                & (np.arange(mi) < len(inactive))[:, None])
+    return ms, kf_masks, wb_masks
+
+
 # ---------------------------------------------------------------------------
 # the system
 # ---------------------------------------------------------------------------
@@ -354,12 +384,23 @@ def overlap_verify_icp(st: SlamState, depth, rays_d, pose_world,
 class MIPSFusionTorch:
     """Online multi-implicit-submap neural RGB-D SLAM in PyTorch, on
     ``device`` (None: the card; ``"cpu"`` for a CPU run). Without a
-    ``dataset`` the config's is built (``datasets.dataset.get_dataset``)."""
+    ``dataset`` the config's is built (``datasets.dataset.get_dataset``).
+    ``mesh``: the devices the sharded paths run over, ``device`` first
+    (None: ``device`` alone)."""
 
-    def __init__(self, config: Dict, dataset=None, device=None):
+    def __init__(self, config: Dict, dataset=None, device=None,
+                 mesh: Optional[Mesh] = None):
         m = config["mapping"]
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = self._resolve_mesh(mesh)
+        # the multi-device switches act only on a mesh of several devices
+        par = parallel_config(config)
+        multi = self.mesh.size > 1
+        self.use_dp_hot = multi and par["dp_hot_path"]
+        self.use_sharded_refine = multi and par["sharded_refine"]
+        # the mesh the ray batches split over (None: unsharded)
+        self._ray_mesh = self.mesh if self.use_dp_hot else None
         if dataset is None:
             from ..datasets.dataset import get_dataset
             dataset = get_dataset(config, self.device)
@@ -459,6 +500,12 @@ class MIPSFusionTorch:
         self._K_mat = None
         self.optim_cur = self.mcfg.optim_cur
         self._inactive_rr = 0
+        # the keyframe store on each other device of the mesh (rows copied
+        # when a keyframe is stored), for the sharded refine's slots
+        self._kf_rays_mirror: Dict[torch.device, torch.Tensor] = {}
+        self._mirror_kf_rays()
+        # per sharded refine: (frame, the submap of each slot)
+        self.sharded_refine_log: List[Tuple[int, List[int]]] = []
         self.rectified_local_pose: Optional[torch.Tensor] = None
         self.temp_local_pose: Optional[torch.Tensor] = None
         # host mirrors of slow-changing state (updated at keyframe
@@ -506,11 +553,58 @@ class MIPSFusionTorch:
     # helpers
     # ------------------------------------------------------------------
 
-    def _generator(self, stage: str, i: int) -> torch.Generator:
-        g = torch.Generator(device=self.device)
-        g.manual_seed((self.seed * 1_000_003 + _STAGE_SEED[stage]) * 100_003
-                      + i + 1)
+    def _generator(self, stage: str, i: int, device=None,
+                   slot: int = 0) -> torch.Generator:
+        """The generator of (stage, i) on ``device`` (the system's by
+        default); a sharded refine's slot s > 0 gets a seed of its own."""
+        g = torch.Generator(device=device or self.device)
+        seed = ((self.seed * 1_000_003 + _STAGE_SEED[stage]) * 100_003
+                + i + 1)
+        g.manual_seed(seed * 1_000_003 + slot if slot else seed)
         return g
+
+    def _resolve_mesh(self, mesh: Optional[Mesh]) -> Mesh:
+        """The mesh, checked: its devices are of the system device's type
+        and the first is the system's device. The default is that device
+        alone."""
+        dev = self.device
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if mesh is None:
+            return Mesh((dev,))
+        if mesh.primary != dev or any(d.type != dev.type
+                                      for d in mesh.devices):
+            raise ValueError(f"{mesh}: the first device must be the "
+                             f"system's {dev}, and every one a {dev.type} "
+                             "device")
+        return mesh
+
+    def _round_rays(self, n: int) -> int:
+        """A per-iteration ray budget rounded up to a multiple of the mesh
+        size when the ray batches split over it."""
+        if self._ray_mesh is None:
+            return n
+        d = self.mesh.size
+        return -(-n // d) * d
+
+    def _mirror_kf_rays(self, rows: Optional[slice] = None):
+        """Copy keyframe rows (all by default) of the store to each other
+        device of the mesh; only the sharded refine reads the copies."""
+        if not self.use_sharded_refine:
+            return
+        st = self.state
+        for d in dict.fromkeys(self.mesh.devices):
+            if d == self.mesh.primary:
+                continue
+            if rows is None or d not in self._kf_rays_mirror:
+                self._kf_rays_mirror[d] = st.kf_rays.to(d)
+            else:
+                self._kf_rays_mirror[d][rows] = st.kf_rays[rows].to(d)
+
+    def _kf_rays_on(self, device: torch.device) -> torch.Tensor:
+        if device == self.mesh.primary:
+            return self.state.kf_rays
+        return self._kf_rays_mirror[device]
 
     def _timed(self, stage: str, fn, *args):
         self.stage_calls[stage] += 1
@@ -598,9 +692,11 @@ class MIPSFusionTorch:
         st.keyframe_localMLP[0, 0] = 0
         mapper.init_submap_fit(
             self.fields[0], self.map_opt, packed.reshape(-1, 7), self.fcfg,
-            self.consts, self.mcfg, self.lw, n_iters, self.mcfg.sample,
-            self._generator("init", 0))
+            self.consts, self.mcfg, self.lw, n_iters,
+            self._round_rays(self.mcfg.sample), self._generator("init", 0),
+            mesh=self._ray_mesh)
         slam_state.add_keyframe(st, packed, 0, self.kf_rows, self.kf_cols)
+        self._mirror_kf_rays(slice(0, 1))
         self._gate_anchor_update(packed, 0)
 
     def track(self, packed: torch.Tensor, i: int):
@@ -608,9 +704,12 @@ class MIPSFusionTorch:
         # switch on (a switch re-expresses poses in another local frame)
         use_cs = bool(self.config["tracking"]["const_speed"]
                       and (i - self.state.last_switch_frame) >= 2)
-        # the levers' inputs, only where a lever is on
+        # the levers' inputs, only where a lever is on (the mesh where
+        # the ray batches split over one)
         gate_on = self.dgcfg is not None
         levers = {}
+        if self._ray_mesh is not None:
+            levers["mesh"] = self._ray_mesh
         if self.rcfg.escalate > 0.0:
             levers["prev_loss"] = self._prev_loss
         if gate_on:
@@ -644,8 +743,10 @@ class MIPSFusionTorch:
             st.active_first_kf, last_kf,
             extract_submap_kf_poses(st, active, self.kf_frames),
             packed.reshape(-1, 7), st.est_c2w[i], self.fcfg, self.consts,
-            self.mcfg, self.lw, self.mcfg.sample + self.mcfg.pixels_cur,
-            self._generator("ba", i), optim_cur=self.optim_cur)
+            self.mcfg, self.lw,
+            self._round_rays(self.mcfg.sample + self.mcfg.pixels_cur),
+            self._generator("ba", i), optim_cur=self.optim_cur,
+            mesh=self._ray_mesh)
         writeback_ba_poses(st, active, kf_mask,
                            qt_to_matrix(res.kf_quat, res.kf_trans),
                            self.kf_frames)
@@ -667,6 +768,7 @@ class MIPSFusionTorch:
         slam_state.add_keyframe(self.state, packed, i, self.kf_rows,
                                 self.kf_cols)
         kf_id = i // self.keyframe_every
+        self._mirror_kf_rays(slice(kf_id, kf_id + 1))
         if not self.use_manager:
             self.state.keyframe_localMLP[kf_id, 0] = self.active_id
             self._host_kf_bind[kf_id] = (self.active_id, -1)
@@ -710,8 +812,10 @@ class MIPSFusionTorch:
             self._n_init_chunks += 1
             mapper.init_submap_fit(
                 self.fields[new_id], self.map_opt, rays, self.fcfg,
-                self.consts, self.mcfg, self.lw, total, self.mcfg.sample,
-                self._generator("init", self._n_init_chunks))
+                self.consts, self.mcfg, self.lw, total,
+                self._round_rays(self.mcfg.sample),
+                self._generator("init", self._n_init_chunks),
+                mesh=self._ray_mesh)
 
     def _drain_init_chunk(self):
         """One chunk of init_chunk iterations of the deferred first fit
@@ -720,7 +824,9 @@ class MIPSFusionTorch:
         mapper.init_submap_fit(
             self.field, self.map_opt, self._pending_init_rays, self.fcfg,
             self.consts, self.mcfg, self.lw, self.init_chunk,
-            self.mcfg.sample, self._generator("init", self._n_init_chunks))
+            self._round_rays(self.mcfg.sample),
+            self._generator("init", self._n_init_chunks),
+            mesh=self._ray_mesh)
         self._pending_init_iters -= self.init_chunk
         if self._pending_init_iters <= 0:
             self._pending_init_iters = 0
@@ -855,12 +961,16 @@ class MIPSFusionTorch:
     # ------------------------------------------------------------------
 
     def inactive_refine_step(self, i: int):
-        """One BA round on the next inactive submap (round robin).
+        """One BA round on the next inactive submap (round robin), or with
+        ``use_sharded_refine`` every inactive submap in one sharded step.
         Membership and the ownership rule (skip keyframes first-bound to
         the active submap) come from the host mirrors."""
         inactive = [m for m in range(self._host_used)
                     if m != self.active_id and self.fields[m] is not None]
         if not inactive:
+            return
+        if self.use_sharded_refine:
+            self._timed("refine", self._inactive_refine_sharded, inactive, i)
             return
         m = inactive[self._inactive_rr % len(inactive)]
         self._inactive_rr += 1
@@ -884,11 +994,58 @@ class MIPSFusionTorch:
             extract_submap_kf_poses(st, m, self.kf_frames),
             torch.zeros((8, 7), device=self.device),
             torch.eye(4, device=self.device), self.fcfg, self.consts,
-            self.mcfg, self.lw, self.mcfg.sample, self._generator("refine", i),
-            include_current=False)
+            self.mcfg, self.lw, self._round_rays(self.mcfg.sample),
+            self._generator("refine", i), include_current=False,
+            mesh=self._ray_mesh)
         writeback_ba_poses(st, m, kf_mask,
                            qt_to_matrix(res.kf_quat, res.kf_trans),
                            self.kf_frames)
+
+    def _inactive_refine_sharded(self, inactive: List[int], i: int):
+        """Every inactive submap refined in one step (the JAX system's
+        sharded refine): the list cycle-padded to a multiple of the mesh
+        size, slot s on mesh device s % n with a copy of its submap's
+        field, a fresh map optimizer, the keyframe store mirrored there and
+        a generator of its own; each runs local BA without the current
+        frame on ``mcfg.sample`` rays. The slots beyond the real submaps
+        are thrown away; each real one writes back only the keyframes
+        first-bound to its submap (disjoint, so no order between slots
+        matters) and its field goes back to the primary device. The round
+        robin's counter does not move."""
+        st, mesh = self.state, self.mesh
+        ms, kf_masks, wb_masks = refine_slots(
+            inactive, mesh.size, self._host_kf_bind, st.n_kf, self.active_id)
+        K = kf_masks.shape[1]
+        out = []
+        for s, m in enumerate(ms):
+            dev = slot_device(mesh, s)
+            kf_mask = torch.as_tensor(kf_masks[s], device=dev)
+            last_kf = torch.where(kf_mask, torch.arange(K, device=dev),
+                                  -1).max()
+            field = sr.Field(replicate_params(
+                self.fields[m].params(detach=True), [dev])[0])
+            res = mapper.local_ba(
+                field, mapper.make_map_optimizer(field, self.mcfg),
+                self._kf_rays_on(dev), kf_mask,
+                st.localMLP_first_kf[m].to(dev), last_kf,
+                extract_submap_kf_poses(st, m, self.kf_frames).to(dev),
+                torch.zeros((8, 7), device=dev), torch.eye(4, device=dev),
+                self.fcfg, replicate_params(self.consts, [dev])[0],
+                self.mcfg, self.lw, self.mcfg.sample,
+                self._generator("refine", i, device=dev, slot=s),
+                include_current=False)
+            out.append((field, res))
+        for s, m in enumerate(ms[:len(inactive)]):
+            field, res = out[s]
+            writeback_ba_poses(
+                st, m, torch.as_tensor(wb_masks[s], device=self.device),
+                qt_to_matrix(res.kf_quat, res.kf_trans).to(self.device),
+                self.kf_frames)
+            with torch.no_grad():
+                for dst, src in zip(self.fields[m].parameters(),
+                                    field.parameters()):
+                    dst.copy_(src)
+        self.sharded_refine_log.append((i, list(ms)))
 
     def global_ba(self, ids: Tuple[int, int]):
         """Pose-graph optimization of the submap anchors after a loop
@@ -1181,6 +1338,7 @@ class MIPSFusionTorch:
         last_frame = int(state.kf_frame_ids[n_kf - 1]) if n_kf else 0
         self._host_used = int(state.localMLP_info[:, 0].sum().item())
         self._host_kf_bind = state.keyframe_localMLP.cpu().numpy().copy()
+        self._mirror_kf_rays()
         self._pending_init_iters = 0
         self._pending_init_rays = None
         self._pending_switch = None

@@ -14,7 +14,8 @@ masks, RO's success branch a ``torch.where``. With the drift gate on, the
 host reads two bools a frame in one sync, whether the gate fired and
 whether the anchor is due for a refresh, and runs the rescue or builds the
 anchor only then (JAX: ``lax.cond``); after a rescue the refresh is a
-``torch.where``.
+``torch.where``. Over a mesh of several devices, RO's queries and GO's
+rays split where their sizes divide by the mesh's (``mesh=``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import torch
 from ..models import scene_rep as sr
 from ..ops.geometry import (matrix_to_quaternion, pose_inverse, qt_to_matrix,
                             quaternion_to_matrix)
+from ..parallel.sharding import (Mesh, column_sharded, divides,
+                                 replicate_params, split)
 from . import icp as icp_mod
 
 
@@ -252,15 +255,22 @@ def ro_optimize(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
                 rcfg: ROConfig, pst: torch.Tensor, depth_img: torch.Tensor,
                 rays_dir_img: torch.Tensor, initial_pose: torch.Tensor,
                 row_idx: torch.Tensor, col_idx: torch.Tensor,
-                n_iters: int, ss_scale: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                n_iters: int, ss_scale: Optional[torch.Tensor] = None,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Particle-swarm pose search; returns the refined pose [4, 4]. Each
     iteration scores all P particles on the shifted pixel grid with one
     SDF-only field query of [3, P * n] points (the K1 kernel); with the
     screen on, one query of [3, P * screen_px] points and one of
     [3, screen_keep * n]. ``ss_scale`` multiplies the initial search
-    size (the escalation)."""
+    size (the escalation). With a ``mesh`` of several devices, a query
+    whose point count divides by its size splits by columns over it
+    (screen stages included; JAX: ``ray_sharding``)."""
     dev = pst.device
+    devices = (column_sharded(mesh).devices()
+               if mesh is not None and mesh.size > 1 else None)
+    if devices is not None:
+        reps = replicate_params(params, devices)
+        consts_reps = replicate_params(consts, devices)
     rot, trans = initial_pose[:3, :3], initial_pose[:3, 3]
     search_size = torch.full((1, 6), rcfg.initial_scaling_factor, device=dev)
     if ss_scale is not None:
@@ -274,7 +284,11 @@ def ro_optimize(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
         n = abs_rot.shape[0]
         worldT = (abs_rot @ ptsT + abs_trans[:, :, None])       # [n, 3, m]
         worldT = worldT.permute(1, 0, 2).reshape(3, -1)
-        sdf = sr.run_network_sdf_T(params, worldT, fcfg, consts)
+        if devices is not None and divides(mesh, worldT.shape[1]):
+            sdf = sr.run_network_sdf_T_sharded(reps, worldT, fcfg,
+                                               consts_reps, devices)
+        else:
+            sdf = sr.run_network_sdf_T(params, worldT, fcfg, consts)
         sdf = sdf.reshape(n, -1) * fcfg.trunc
         mean_sdf = (valid[None] * sdf.abs()).mean(-1)             # [n]
         return mean_sdf * rcfg.sdf_weight, mean_sdf
@@ -336,7 +350,8 @@ def go_optimize(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
                 target_rgb: torch.Tensor, target_d: torch.Tensor,
                 initial_pose: torch.Tensor, n_iters: int, lw: sr.LossWeights,
                 generator: Optional[torch.Generator] = None,
-                prior_pose: Optional[torch.Tensor] = None):
+                prior_pose: Optional[torch.Tensor] = None,
+                mesh: Optional[Mesh] = None):
     """Adam on (quaternion, translation) against the rendering losses of
     fixed rays; returns (pose [4, 4], best loss). The loss before each
     update competes for the best pose; after ``wait_iters`` non-improving
@@ -344,12 +359,22 @@ def go_optimize(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
     semantics), kept on device as the ``alive`` mask. ``params`` should be
     detached: GO differentiates only the pose. With ``motion_prior_w`` > 0
     the loss adds w (|t - t_prior|^2 + 1 - (q . q_prior)^2), anchored to
-    ``prior_pose`` (default: the initial pose)."""
+    ``prior_pose`` (default: the initial pose). With a ``mesh`` of several
+    devices and a ray count that divides by its size, the rays and targets
+    split over it and the field and pose are replicated."""
     dev = rays_d_cam.device
     p = [matrix_to_quaternion(initial_pose[:3, :3]), initial_pose[:3, 3]]
     opt = MaskedAdam(p, [gcfg.lr_rot, gcfg.lr_trans])
     rays_d_camT = rays_d_cam.T
     target_rgbT = target_rgb.T
+    devices = None
+    if divides(mesh, rays_d_cam.shape[0]):
+        devices = column_sharded(mesh).devices()
+        reps = replicate_params(params, devices)
+        consts_reps = replicate_params(consts, devices)
+        dirs_s = split(rays_d_camT, devices, 1)
+        rgb_s = split(target_rgbT, devices, 1)
+        depth_s = split(target_d, devices)
     best_loss = torch.full((), float("inf"), device=dev)
     best_p = list(p)
     thresh = torch.zeros((), dtype=torch.int64, device=dev)
@@ -362,11 +387,19 @@ def go_optimize(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
         rot = p[0].detach().requires_grad_(True)
         trans = p[1].detach().requires_grad_(True)
         T = qt_to_matrix(rot, trans)
-        rays_dT = T[:3, :3] @ rays_d_camT
-        rays_oT = T[:3, 3][:, None].expand_as(rays_dT)
-        ret = sr.forward_losses_T(params, rays_oT, rays_dT, target_rgbT,
-                                  target_d, fcfg, consts, emd_w=0.0,
-                                  generator=generator)
+        if devices is not None:
+            Ts = replicate_params(T, devices)
+            dT = [Tk[:3, :3] @ d for Tk, d in zip(Ts, dirs_s)]
+            ret = sr.forward_losses_T_sharded(
+                reps, [Tk[:3, 3][:, None].expand_as(d)
+                       for Tk, d in zip(Ts, dT)], dT, rgb_s, depth_s, fcfg,
+                consts_reps, emd_w=0.0, generator=generator)
+        else:
+            rays_dT = T[:3, :3] @ rays_d_camT
+            rays_oT = T[:3, 3][:, None].expand_as(rays_dT)
+            ret = sr.forward_losses_T(params, rays_oT, rays_dT, target_rgbT,
+                                      target_d, fcfg, consts, emd_w=0.0,
+                                      generator=generator)
         loss = sr.total_loss(ret, lw)
         if gcfg.motion_prior_w > 0.0:
             # metres^2 in translation; the sign-free quaternion term is
@@ -468,14 +501,16 @@ def track_frame(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
                 dgcfg: Optional[DriftGateConfig] = None,
                 gate: Optional[GateAnchor] = None,
                 prev_rescued: Optional[torch.Tensor] = None,
-                polish_generator: Optional[torch.Generator] = None
-                ) -> TrackResult:
+                polish_generator: Optional[torch.Generator] = None,
+                mesh: Optional[Mesh] = None) -> TrackResult:
     """Motion model -> RO -> GO -> pose gate -> drift gate for frame
     ``frame_idx``. ``prev_loss``: the previous frame's loss (RO's
     escalation signal); ``prev_rescued``: the drift gate rescued the
     previous frame, whose correction jump the constant-velocity model must
     not extrapolate; ``polish_generator``: the rescue's GO polish draws
-    (the tracking generator's stream stays as it is with the gate off)."""
+    (the tracking generator's stream stays as it is with the gate off);
+    ``mesh``: RO's queries, GO and the polish GO split over it where their
+    sizes divide (JAX: ``ray_sharding``)."""
     H, W = depth_img.shape
     dev = depth_img.device
     prev_pose = est_c2w[frame_idx - 1]
@@ -502,7 +537,7 @@ def track_frame(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
         row_idx, col_idx = ro_pixel_grid(H, W, rcfg, dev)
         pose = ro_optimize(params, fcfg, consts, rcfg, pst, depth_img,
                            rays_dir_img, pose, row_idx, col_idx, n_iter_ro,
-                           ss_scale=scale)
+                           ss_scale=scale, mesh=mesh)
 
     rr, cc = sample_pixels_mix(generator, H, W, rcfg.n_rows, rcfg.n_cols,
                                depth_img, gcfg.n_rays,
@@ -513,7 +548,7 @@ def track_frame(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
     target_d = depth_img[rr, cc][:, None]
     pose, loss = go_optimize(params, fcfg, consts, gcfg, rays_d_cam,
                              target_rgb, target_d, pose, n_iter_go, lw,
-                             generator, prior_pose=pred)
+                             generator, prior_pose=pred, mesh=mesh)
 
     seeded = loss_ewma > 0.0
     if gcfg.gate_rel > 0.0:
@@ -585,7 +620,7 @@ def track_frame(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
             pose_r, _ = go_optimize(params, fcfg, consts, pgcfg, rays_d_cam,
                                     target_rgb, target_d, pose_icp,
                                     n_iter_go, lw, polish_generator,
-                                    prior_pose=pose_icp)
+                                    prior_pose=pose_icp, mesh=mesh)
         pose = torch.where(rescued, pose_r, pose)
         drift_res = torch.where(rescued, slip_v, slip)
         refresh = None
@@ -605,8 +640,8 @@ def track_frame_update(params: Dict, fcfg: sr.FieldConfig,
                        dgcfg: Optional[DriftGateConfig] = None,
                        gate: Optional[GateAnchor] = None,
                        prev_rescued: Optional[torch.Tensor] = None,
-                       polish_generator: Optional[torch.Generator] = None
-                       ) -> TrackResult:
+                       polish_generator: Optional[torch.Generator] = None,
+                       mesh: Optional[Mesh] = None) -> TrackResult:
     """Track frame ``frame_idx`` and commit the pose-store bookkeeping
     (est_c2w, the pose relative to its keyframe, keyframe_ref) in place.
     With the drift gate on, the returned anchor is refreshed from this
@@ -617,7 +652,7 @@ def track_frame_update(params: Dict, fcfg: sr.FieldConfig,
                       use_const_speed, lw, n_iter_ro, n_iter_go, loss_ewma,
                       prev_loss=prev_loss, dgcfg=dgcfg, gate=gate,
                       prev_rescued=prev_rescued,
-                      polish_generator=polish_generator)
+                      polish_generator=polish_generator, mesh=mesh)
     kf_id = frame_idx // keyframe_every
     kf_frame = kf_id * keyframe_every
     state.est_c2w[frame_idx] = res.pose

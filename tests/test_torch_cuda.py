@@ -314,3 +314,103 @@ def test_kernels_raise_on_other_widths(card):
         fc.field_forward(x, planes, prm["decoder"], *META)
     with pytest.raises(ValueError):
         fc.field_forward(x, prm["planes"], prm["decoder"], META[0], 4, 5)
+
+
+# ------------------------------------------------- several devices ----
+
+def test_virtual_mesh_sharded_loss_matches_unsharded(card):
+    """A virtual 2-shard mesh on one card (["cuda:0", "cuda:0"]): the
+    loss of 2,600 ray-ordered rays split in two shards against the
+    unsharded loss with the same z perturbation, through K1-K4 (rtol
+    1e-5 on the loss; the gradients of every field parameter within 1e-4
+    of their scale: K3's fixed-point scale comes from each call's own
+    gradient maximum, so shards round apart from one call)."""
+    from mipsfusion_tpu_torch.models import scene_rep as sr
+    from mipsfusion_tpu_torch.parallel import sharding as sh
+    dev, prm, META, E = card
+    ns = META[0]
+    cfg = sr.FieldConfig(tri=sr.TriplaneConfig(
+        tuple(prm["planes"][f"s{s}"].shape[1] for s in range(ns)), 4,
+        prm["planes"]["cp"].shape[1], prm["planes"]["cp"].shape[2]),
+        decoder=sr.DecoderConfig(input_ch=E, input_ch_pos=51))
+    mesh = sh.make_mesh(devices=["cuda:0", "cuda:0"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    n = 2600
+    d = torch.nn.functional.normalize(
+        torch.randn((3, n), generator=gen, device=dev), dim=0)
+    o = torch.zeros((3, n), device=dev)
+    rgb = torch.rand((3, n), generator=gen, device=dev)
+    depth = torch.rand((n, 1), generator=gen, device=dev) * 3.0 + 0.5
+    u = torch.rand((n, cfg.n_range_d + cfg.n_samples_d), generator=gen,
+                   device=dev)
+    consts = sr.FieldConsts(torch.full((3,), -4.0, device=dev),
+                            torch.full((3,), 0.125, device=dev))
+
+    def run(shards):
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in prm["planes"].items()}
+        params = {"planes": leaves, "decoder": prm["decoder"]}
+        fc.reset_launch_counts()
+        if shards is None:
+            ret = sr.forward_losses_T(params, o, d, rgb, depth, cfg, consts,
+                                      u=u)
+        else:
+            devs = sh.ray_sharded(mesh).devices()
+            ret = sr.forward_losses_T_sharded(
+                sh.replicate_params(params, devs), sh.split(o, devs, 1),
+                sh.split(d, devs, 1), sh.split(rgb, devs, 1),
+                sh.split(depth, devs), cfg,
+                sh.replicate_params(consts, devs), u=u)
+        loss = sr.total_loss(ret, sr.LossWeights())
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach(), leaves, fc.launch_counts(by_device=True)
+
+    ref_loss, ref_g, _ = run(None)
+    loss, g, counts = run(2)
+    assert torch.isclose(loss, ref_loss, rtol=1e-5)
+    for k in g:
+        scale = ref_g[k].grad.abs().max()
+        assert (g[k].grad - ref_g[k].grad).abs().max() <= 1e-4 * scale
+    assert counts["field_forward"] == {0: 2}
+    assert counts["plane_backward"] == {0: 2}
+
+
+def test_kernels_on_a_second_card_give_the_first_cards_bits(card):
+    """K1-K4 launched on cuda:1 (their shared-memory limit raised there,
+    on that device's stream) give cuda:0's bits at the BA label (195,000
+    uniform points), and count their launches on device 1. Needs two
+    cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev, prm, META, E = card
+    ns = META[0]
+
+    def run(device):
+        p = {"planes": {k: v.to(device) for k, v in prm["planes"].items()},
+             "decoder": {n: {k: v.to(device) for k, v in d.items()}
+                         for n, d in prm["decoder"].items()}}
+        x = chip_smoke.test_points(195_000, 1, dev).to(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2)
+        g = (torch.randn((10, x.shape[1]), generator=gen, device=dev)
+             * 0.1).to(device)
+        de = (torch.randn((E, x.shape[1]), generator=gen, device=dev)
+              * 0.1).to(device)
+        out, emb = fc.field_forward(x, p["planes"], p["decoder"], *META,
+                                    return_embed=True)
+        k2 = fc.decoder_backward(x, g, emb, p["decoder"], 8, 5)
+        k3 = tc.plane_backward(x, de, p["planes"], ns)
+        k4 = tc.x_backward(x, de, p["planes"], ns)
+        torch.cuda.synchronize(device)
+        return [t.cpu() for t in chip_smoke._flat((out, emb, k2, k3, k4))]
+
+    fc.reset_launch_counts()
+    first = run(torch.device("cuda", 0))
+    second = run(torch.device("cuda", 1))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    counts = fc.launch_counts(by_device=True)
+    for name in ("field_forward", "decoder_backward", "plane_backward",
+                 "x_backward"):
+        assert counts[name] == {0: 1, 1: 1}, (name, counts[name])

@@ -75,7 +75,7 @@ def run(out_path=None):
 
             def call(blocks):
                 _build.check(fn(*ptrs, n, out.data_ptr(), *blocks,
-                                _build.stream()), "encode_forward")
+                                _build.stream(xr.device)), "encode_forward")
 
             ms = {v: [] for v in variants}
             for order in (list(variants), list(reversed(variants))):
