@@ -131,7 +131,23 @@ Phases (any failure raises; the exit code is then non-zero):
                box's faces by that distance carries the containment
                ratio across its threshold (both runs' predicates printed
                at every keyframe up to it); the next closing seed is
-               then held to every check.
+               then held to every check;
+ 15. files   - the file readers: the committed JPEG and PNG fixtures
+               (tests/data/{jpeg,png}) decode with csrc/image.cpp, built
+               here with the host c++, to the SHA-256 recorded beside
+               them; the flagship outback (200 frames, seed 0) rendered at
+               configs/FastCaMo-large/fastcamo_large.yaml's camera (680 x
+               1200, fx 600) and written as a FastCaMo tree (8-bit RGB
+               and 16-bit depth PNGs, pose txt), then run as that config
+               (the fcl field: [32, 64, 128] + CP 384 x 40, localMLP_num
+               20, FastCaMo's budgets) through load_config, get_dataset
+               and MIPSFusionTorch.run with only data.datadir and the
+               outback's mapping bounds set: every packed frame equal to
+               the written one bit for bit, K1-K4 at the fcl shape and K0
+               never, ATE < 0.05 m; submaps, switch frames, FPS, stage
+               ms, the decode ms a frame against the track ms; the joint
+               mesh at mesh.voxel_final scored against the analytic SDF
+               (printed, not held).
 The kernels' JSON line comes second to last; the last line is
 {"ok": true, "device": {...}}.
 
@@ -157,6 +173,10 @@ predicates and pose errors at every keyframe) or phase 11 alone.
 
 run phases 1-2 and then phase 12, or phase 13 at seed 0 with its kernel
 labels, alone.
+
+    python3 chip_smoke.py --files-only
+
+runs phases 1-2 and then phase 15 alone.
 
     python3 chip_smoke.py --sharded-only
 
@@ -2323,6 +2343,263 @@ def sharded_outback(mesh, seed: int):
             decisions, slam.manager.cfg)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the file readers (FastCaMo-large on the outback)
+# ---------------------------------------------------------------------------
+
+FILES_ATE = 0.05
+FILES_FRAMES = 200
+FILES_CONFIG = "configs/FastCaMo-large/fastcamo_large.yaml"
+
+
+def write_png(path: str, a: np.ndarray) -> None:
+    """``a`` as a PNG: uint8 RGB [H, W, 3] or uint16 grey [H, W] (big-
+    endian samples), every row with filter 2 (Up), zlib level 1."""
+    import struct
+    import zlib
+    h, w = a.shape[:2]
+    if a.dtype == np.uint16:
+        raw, depth, ctype = a.astype(">u2").view(np.uint8).reshape(h, -1), \
+            16, 0
+    else:
+        raw, depth, ctype = a.reshape(h, -1), 8, 2
+    up = raw.copy()
+    up[1:] -= raw[:-1]
+    body = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(body.tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def files_decoders():
+    """(a) The committed JPEG and PNG fixtures (tests/data/{jpeg,png},
+    written by cv2 on the CPU host) decode on this host to the SHA-256
+    recorded beside them, and the PNG writer's files read back bit for
+    bit; the decoders (csrc/image.cpp) are built here with this host's
+    c++."""
+    import hashlib
+    from mipsfusion_tpu_torch.datasets import image
+    from mipsfusion_tpu_torch.ops import _build
+    t0 = time.time()
+    _build.image_lib()
+    print(f"files: image decoders built in {time.time() - t0:.2f} s "
+          f"({os.path.basename(_build.host_lib_path(_build.IMAGE_SRC))})")
+    root = os.path.dirname(os.path.abspath(__file__))
+    n = 0
+    for kind in ("jpeg", "png"):
+        d = os.path.join(root, "tests", "data", kind)
+        with open(os.path.join(d, "digests.json")) as f:
+            rec = json.load(f)
+        for name, r in sorted(rec.items()):
+            path = os.path.join(d, name)
+            px = (image.read_depth(path) if name.startswith("depth16")
+                  else image.read_color(path))
+            got = hashlib.sha256(np.ascontiguousarray(px).tobytes())
+            if list(px.shape) != r["shape"] or got.hexdigest() != r["sha256"]:
+                _fail(f"files: {kind}/{name} decodes to another digest")
+            n += 1
+    rng = np.random.default_rng(0)
+    tmp = tempfile.mkdtemp(prefix="mf_png_")
+    try:
+        for a in (rng.integers(0, 256, (37, 53, 3), dtype=np.uint8),
+                  rng.integers(0, 65536, (37, 53), dtype=np.uint16)):
+            p = os.path.join(tmp, "x.png")
+            write_png(p, a)
+            back = (image.read_color(p) if a.ndim == 3
+                    else image.read_depth(p))
+            if not np.array_equal(back, a):
+                _fail("files: the PNG writer's file reads back otherwise")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"files: {n} fixtures decode to their recorded SHA-256 "
+          "(JPEG baseline 4:4:4 / 4:2:2 / 4:2:0, restarts, grey; PNG "
+          "filters 0-4, RGB, RGBA, grey, 16-bit grey)")
+
+
+def files_tree(cfg, root: str, n_frames: int, dev):
+    """Render the outback (n_frames, span 1, seed 0) at the config's own
+    camera with the port's SyntheticDataset and write it as a FastCaMo
+    tree under ``root``: color/<i>.png (8-bit RGB), depth/<i>.png (16-bit
+    at cam.png_depth_scale), pose/<i>.txt (the pose before the readers'
+    OpenGL flip). Returns the written (rgb uint8, depth uint16) per frame
+    and the render's room half-extent."""
+    import concurrent.futures as cf
+    import copy
+    import torch
+    from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
+    rcfg = copy.deepcopy(cfg)
+    rcfg["synthetic"] = _load_yaml("configs/synthetic/outback.yaml")[
+        "synthetic"]
+    batch = 16
+    ds = SyntheticDataset(rcfg, n_frames=n_frames, trajectory="outback",
+                          span=1.0, seed=0, device_cache=batch, device=dev)
+    for sub in ("color", "depth", "pose"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    scale = cfg["cam"]["png_depth_scale"]
+    written, jobs = {}, []
+    t0 = time.time()
+    with cf.ThreadPoolExecutor(8) as pool:
+        for k in range(0, n_frames, batch):
+            chunk = range(k, min(k + batch, n_frames))
+            ds.prerender(chunk)
+            for i in chunk:
+                p = ds.packed(i)
+                rgb = torch.round(p[..., 3:6].clamp(0, 1) * 255).to(
+                    torch.uint8).cpu().numpy()
+                depth = torch.round(p[..., 6] * scale).to(
+                    torch.int32).cpu().numpy().astype(np.uint16)
+                T = ds.gt_pose(i).astype(np.float64).copy()
+                T[:3, 1:3] *= -1
+                np.savetxt(os.path.join(root, "pose", f"{i}.txt"), T)
+                written[i] = (rgb, depth)
+                jobs.append(pool.submit(write_png, os.path.join(
+                    root, "color", f"{i}.png"), rgb))
+                jobs.append(pool.submit(write_png, os.path.join(
+                    root, "depth", f"{i}.png"), depth))
+        for j in jobs:
+            j.result()
+    size = sum(os.path.getsize(os.path.join(root, s, f))
+               for s in ("color", "depth")
+               for f in os.listdir(os.path.join(root, s)))
+    print(f"files: {n_frames} outback frames at {ds.H} x {ds.W} rendered "
+          f"and written in {time.time() - t0:.1f} s ({size / 2**20:.0f} "
+          "MiB of PNG)")
+    return written, ds.room_half.cpu()
+
+
+def phase_files(n_frames: int = FILES_FRAMES):
+    """Phase 15: (a) the decoders (``files_decoders``); (b) the flagship
+    outback (seed 0) written as a FastCaMo tree at FastCaMo-large's camera
+    (``files_tree``) and run as a user runs a FastCaMo-large scene: the
+    port's load_config on configs/FastCaMo-large/fastcamo_large.yaml with
+    data.datadir and the outback's mapping bounds set (data.output None:
+    no files written), get_dataset's FastCaMoDataset, MIPSFusionTorch.run.
+    Every frame the loop packed must equal the written frame's quantised
+    values bit for bit, K1-K4 launch at the fcl shape and K0 never, ATE <
+    FILES_ATE; then the joint mesh at mesh.voxel_final, scored against
+    the scene's analytic SDF (printed, not held). Returns the run's
+    launch counts."""
+    import torch
+    from mipsfusion_tpu_torch.config import apply_overrides
+    from mipsfusion_tpu_torch.eval.recon import (evaluate_synthetic_mesh,
+                                                 mesh_error_split)
+    from mipsfusion_tpu_torch.ops import _build
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
+    files_decoders()
+    dev = torch.device("cuda")
+    outback = _load_yaml("configs/synthetic/outback.yaml")["mapping"]
+    tmp = tempfile.mkdtemp(prefix="mf_fastcamo_")
+    try:
+        cfg = apply_overrides(_load_yaml(FILES_CONFIG), {
+            "data.datadir": tmp, "data.output": None,
+            "mapping.bound": outback["bound"],
+            "mapping.marching_cubes_bound": outback["marching_cubes_bound"]})
+        written, room_half = files_tree(cfg, tmp, n_frames, dev)
+        t0 = time.time()
+        slam = MIPSFusionTorch(cfg)
+        ds = slam.dataset
+        print(f"files: {type(ds).__name__} ({cfg['dataset']}) of "
+              f"{ds.num_frames} frames at {ds.H} x {ds.W}, system built in "
+              f"{time.time() - t0:.1f} s")
+        shape = _build.kernel_shape(slam.field.params(detach=True)["planes"],
+                                    slam.fcfg.n_scales)
+        if shape.name != "fcl":
+            _fail(f"files: the field's shape is {shape.name}, not fcl")
+        # every frame the loop takes, held on the card to the written
+        # frame's values, made on the host with the reader's numpy
+        # arithmetic (on the card, PyTorch divides by a Python scalar
+        # through its reciprocal); per channel group, no host read inside
+        # the loop
+        rays = torch.from_numpy(ds.rays_d).to(dev)
+        mismatch = torch.zeros(3, dtype=torch.int64, device=dev)
+        seen = set()
+        packed = ds.packed
+
+        def checked(i):
+            nonlocal mismatch
+            f = packed(i)
+            if i not in seen:
+                seen.add(i)
+                rgb, depth = written[i]
+                rgb = torch.from_numpy(rgb.astype(np.float32) / 255.0)
+                depth = torch.from_numpy(depth.astype(np.float32)
+                                         / ds.png_depth_scale * ds.sc_factor)
+                mismatch = mismatch + torch.stack([
+                    (f[..., :3] != rays).sum(),
+                    (f[..., 3:6] != rgb.to(dev)).sum(),
+                    (f[..., 6] != depth.to(dev)).sum()])
+            return f
+        ds.packed = checked
+        torch.cuda.reset_peak_memory_stats()
+        res, counts, wall = _run_path(slam)
+        ds.packed = packed
+        ds.close()
+        bad = mismatch.tolist()
+        if any(bad) or len(seen) != n_frames:
+            _fail(f"files: values of {len(seen)} packed frames differ from "
+                  f"the written frames (direction, rgb, depth): {bad}")
+        ate = res["absolute_translational_error.rmse"]
+        stage = slam.stage_ms()
+        d = ds.decode_s
+        nf = max(d["frames"], 1)
+        print(f"files: {n_frames} frames  shape {shape.name}  ATE RMSE "
+              f"{ate * 1000:.2f} mm  tracked FPS {res['fps']:.2f}  wall "
+              f"{wall:.1f} s  submaps {res['n_submaps']}  switches (frame, "
+              f"flag) {slam.switch_events}  peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print(f"files: every packed frame equals the written one "
+              f"({len(seen)} frames, bit for bit)")
+        print(f"files launches {counts}  stage calls {dict(slam.stage_calls)}")
+        print("files stage ms (CUDA events, mean per call): " + json.dumps(
+            {k: round(v, 3) for k, v in stage.items()}))
+        print(f"files decode ms a frame (host, prefetch thread): PNG colour "
+              f"{d['color'] / nf * 1000:.2f}  PNG depth "
+              f"{d['depth'] / nf * 1000:.2f}  whole frame packed "
+              f"{d['pack'] / nf * 1000:.2f}  against track "
+              f"{stage.get('track', float('nan')):.2f} and the loop's "
+              f"{1000.0 / res['fps']:.2f} a frame; the loop waited "
+              f"{d['wait'] * 1000:.1f} ms in all on the prefetch "
+              f"({nf} frames decoded)")
+        RUNS["files"] = {"ate": ate, "fps": res["fps"], "stage_ms": stage,
+                         "switches": list(slam.switch_events),
+                         "decode_ms": {k: d[k] / nf * 1000 for k in (
+                             "color", "depth", "pack")},
+                         "wait_s": d["wait"]}
+        if counts["encode_forward"]:
+            _fail(f"files: K0 launched {counts['encode_forward']} times")
+        if not ate < FILES_ATE:
+            _fail(f"files: ATE {ate:.4f} m >= {FILES_ATE} m")
+        voxel = cfg["mesh"]["voxel_final"]
+        fc.reset_launch_counts()
+        t0 = time.time()
+        verts, faces, colors = slam.extract_mesh(voxel_size=voxel)
+        torch.cuda.synchronize()
+        mesh_wall = time.time() - t0
+        mesh_counts = fc.launch_counts()
+        if not (len(verts) and len(faces) and np.isfinite(verts).all()):
+            _fail("files: mesh empty or non-finite")
+        m = evaluate_synthetic_mesh(slam, verts=verts, room_half=room_half)
+        e = mesh_error_split(verts, room_half)
+        print(f"files mesh: voxel {voxel}  {len(verts)} vertices "
+              f"{len(faces)} faces  wall {mesh_wall:.2f} s  launches "
+              f"{mesh_counts}  accuracy {m['mesh_accuracy_m'] * 1000:.2f} mm"
+              f"  completion@5cm {m['mesh_completion@5cm']:.4f}  (printed, "
+              f"not held)  vertices outside the room "
+              f"{e['outside_share']:.4f}, accuracy of those inside "
+              f"{e['inside_accuracy_m'] * 1000:.2f} mm")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2350,6 +2627,9 @@ def main(argv=None):
     ap.add_argument("--consistency-only", action="store_true",
                     help="phases 1-2, then only phase 13 (the consistency "
                          "outback at seed 0) and its kernel labels")
+    ap.add_argument("--files-only", action="store_true",
+                    help="phases 1-2, then only phase 15 (the decoders and "
+                         "the FastCaMo-large run through the file reader)")
     ap.add_argument("--sharded-only", action="store_true",
                     help="phases 1-2, then only phase 14 (the orbit and the "
                          "outback on the sharded mesh, against their "
@@ -2360,10 +2640,12 @@ def main(argv=None):
                       args.outback_spawn)
         return 0
     if (args.scale_only or args.stress_only or args.hash_only
-            or args.consistency_only or args.sharded_only):
+            or args.consistency_only or args.sharded_only or args.files_only):
         phase_device()
         phase_build(check_hmma=False)
-        if args.sharded_only:
+        if args.files_only:
+            print(json.dumps({"launches_files": phase_files()}))
+        elif args.sharded_only:
             counts, by_dev = phase_sharded()
             print(json.dumps({"launches_sharded": counts,
                               "launches_sharded_by_device": by_dev}))
@@ -2412,6 +2694,7 @@ def main(argv=None):
     cons_stage, cons_run, cons_sizes = phase_consistency(closing_seed)
     phase_consistency_kernels(rows, cons_sizes)
     sharded_counts, sharded_by_dev = phase_sharded()
+    files_counts = phase_files()
     # K0 has no SLAM caller (as triplane_encode_pallas has none in the JAX
     # package): no loop may launch it
     k0_loops = [orbit_counts["encode_forward"], cp_counts["encode_forward"],
@@ -2419,11 +2702,12 @@ def main(argv=None):
                 stress_off["encode_forward"],
                 stress_counts["encode_forward"],
                 cons_run["encode_forward"],
-                sharded_counts["encode_forward"]] + [
+                sharded_counts["encode_forward"],
+                files_counts["encode_forward"]] + [
         c["encode_forward"] for c in by_seed.values()]
     if any(k0_loops):
         _fail(f"K0 launched by a SLAM loop (orbit, cp profile, scale, "
-              f"stress off and on, consistency, sharded outback, "
+              f"stress off and on, consistency, sharded outback, files, "
               f"outbacks): {k0_loops}")
     kernels = []
     for name, r in rows.items():
@@ -2457,6 +2741,9 @@ def main(argv=None):
             # the sharded outback (phase 14), in all and per CUDA device
             "launches_sharded": sharded_counts[name],
             "launches_sharded_by_device": sharded_by_dev[name],
+            # the FastCaMo-large run through the file reader (phase 15:
+            # the kernels at the fcl shape)
+            "launches_files": files_counts[name],
             "slam_caller": on_path,
             "max_abs_err": r["max_abs_err"],
             # "ms", "plain_ms" and the bound at the first shape measured

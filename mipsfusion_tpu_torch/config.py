@@ -2,16 +2,19 @@
 
 ``load_config``, ``update_recursive`` and ``apply_overrides`` are the port
 of ``mipsfusion_tpu/config.py``. The card's machine has no PyYAML, so
-``load_config`` parses the subset of YAML that ``configs/base.yaml`` and
-``configs/synthetic/*.yaml`` use: nested block mappings (spaces only),
-``#`` comments, plain and quoted scalars (ints, floats with a dot and an
-optional signed exponent, ``True``/``False``, null) and one-line flow
-lists, nested ones included. Scalars resolve as PyYAML's YAML 1.1 rules
-resolve them. Anything outside the subset (block sequences, flow
-mappings, anchors, tags, block scalars, multi-line values, duplicate keys,
-a numeric-looking plain scalar those rules would read as a string, such as
-``1e-5``) raises, so a config is never misread. ``inherit_from`` resolves
-as the JAX loader resolves it.
+``load_config`` parses the subset of YAML that the files of ``configs/``
+use: nested block mappings (spaces only), ``#`` comments, plain and quoted
+scalars (ints, floats with a dot and an optional signed exponent,
+``True``/``False``, null), one-line flow lists, nested ones included, and
+block sequences of such values or of block sequences (``- - -0.1`` under
+a key, at the key's indent or deeper, as the scene files of
+``configs/ScanNet`` and ``configs/FastCaMo-*`` write their bounds).
+Scalars resolve as PyYAML's YAML 1.1 rules resolve them. Anything outside
+the subset (a mapping inside a sequence, flow mappings, anchors, tags,
+block scalars, multi-line values, duplicate keys, a numeric-looking plain
+scalar those rules would read as a string, such as ``1e-5``) raises, so a
+config is never misread. ``inherit_from`` resolves as the JAX loader
+resolves it.
 
 ``FLAGSHIP_ORBIT`` is ``configs/base.yaml`` merged with
 ``configs/synthetic/orbit.yaml`` and ``FLAGSHIP_OUTBACK`` the same base
@@ -34,7 +37,9 @@ _BOOL = {"yes": True, "Yes": True, "YES": True, "no": False, "No": False,
          "On": True, "ON": True, "off": False, "Off": False, "OFF": False}
 _NULL = {"~", "null", "Null", "NULL"}
 _INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)$")
-_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*\.[0-9_]*|\.[0-9_]+)"
+# (PyYAML's pattern: a sign only before a leading digit, so "-.5" is a
+# string there and raises here)
+_FLOAT = re.compile(r"(?:[-+]?[0-9][0-9_]*\.[0-9_]*|\.[0-9_]+)"
                     r"(?:[eE][-+][0-9]+)?$")
 _SPECIAL_FLOAT = {".inf": float("inf"), ".Inf": float("inf"),
                   ".INF": float("inf"), "+.inf": float("inf"),
@@ -212,6 +217,58 @@ def parse_yaml_subset(text: str, name: str = "<yaml>") -> Dict[str, Any]:
 
     pos = 0
 
+    def is_item(content: str) -> bool:
+        return content == "-" or content.startswith("- ")
+
+    def nested(indent: int) -> Any:
+        """The value on the lines after a ``key:`` or ``-`` with nothing
+        after it: a block below ``indent`` (a sequence may also sit at
+        ``indent`` itself after a key), or None."""
+        if pos >= len(lines):
+            return None
+        ind, content = lines[pos][1], lines[pos][2]
+        if is_item(content) and ind >= indent:
+            return sequence(ind)
+        if ind > indent:
+            return block(ind)
+        return None
+
+    def sequence(indent: int) -> List[Any]:
+        nonlocal pos
+        out: List[Any] = []
+        while pos < len(lines):
+            no, ind, content = lines[pos]
+            where = f"{name}:{no}"
+            if ind < indent:
+                break
+            if ind > indent:
+                raise YamlSubsetError(f"{where}: unexpected indentation")
+            if not is_item(content):
+                break
+            rest = content[1:].lstrip(" ")
+            if is_item(rest):                   # "- - x": a nested sequence
+                lines[pos] = (no, ind + len(content) - len(rest), rest)
+                out.append(sequence(lines[pos][1]))
+                continue
+            pos += 1
+            if not rest:
+                if pos < len(lines) and lines[pos][1] > indent \
+                        and not is_item(lines[pos][2]):
+                    raise YamlSubsetError(
+                        f"{name}:{lines[pos][0]}: a mapping inside a "
+                        "sequence is outside the subset")
+                out.append(nested(indent + 1))
+                continue
+            if _KEY.match(rest):
+                raise YamlSubsetError(f"{where}: a mapping inside a "
+                                      "sequence is outside the subset")
+            out.append(_value(rest, where))
+            if pos < len(lines) and lines[pos][1] > indent:
+                raise YamlSubsetError(
+                    f"{name}:{lines[pos][0]}: a value continues over "
+                    "several lines (outside the subset)")
+        return out
+
     def block(indent: int) -> Dict[str, Any]:
         nonlocal pos
         out: Dict[str, Any] = {}
@@ -222,10 +279,9 @@ def parse_yaml_subset(text: str, name: str = "<yaml>") -> Dict[str, Any]:
                 break
             if ind > indent:
                 raise YamlSubsetError(f"{where}: unexpected indentation")
-            if content.startswith("- ") or content == "-":
-                raise YamlSubsetError(f"{where}: block sequences are "
-                                      "outside the subset; write a flow "
-                                      "list [a, b]")
+            if is_item(content):
+                raise YamlSubsetError(f"{where}: a sequence item where a "
+                                      "key was expected")
             m = _KEY.match(content)
             if m is None:
                 raise YamlSubsetError(f"{where}: expected 'key: value', got "
@@ -240,10 +296,8 @@ def parse_yaml_subset(text: str, name: str = "<yaml>") -> Dict[str, Any]:
                     raise YamlSubsetError(
                         f"{name}:{lines[pos][0]}: a value continues over "
                         "several lines (outside the subset)")
-            elif pos < len(lines) and lines[pos][1] > indent:
-                out[key] = block(lines[pos][1])
             else:
-                out[key] = None
+                out[key] = nested(indent)
         return out
 
     if lines and lines[0][1] != 0:

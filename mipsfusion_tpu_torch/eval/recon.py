@@ -68,18 +68,22 @@ def depth_l1(pred_depth: np.ndarray, gt_depth: np.ndarray) -> float:
 
 
 def evaluate_synthetic_mesh(slam, n_gt_samples: int = 20000,
-                            seed: int = 0, verts=None) -> Dict[str, float]:
+                            seed: int = 0, verts=None,
+                            room_half=None) -> Dict[str, float]:
     """Mesh accuracy and completion against the synthetic dataset's
     analytic SDF (``datasets/synthetic.scene_sdf``, evaluated in float32 on
     the CPU). Pass ``verts`` to score an already-extracted mesh instead of
-    extracting one. Completion counts only the ground-truth samples a
-    keyframe saw, with the mesher's own visibility test."""
+    extracting one, and ``room_half`` for a run whose dataset is not the
+    synthetic one (the scene read back from files). Completion counts only
+    the ground-truth samples a keyframe saw, with the mesher's own
+    visibility test."""
     import torch
     from ..datasets.synthetic import props_on, scene_sdf
     from ..mesher.mesher import point_seen_mask
 
     ds = slam.dataset
-    room_half = ds.room_half.detach().cpu()
+    room_half = torch.as_tensor(
+        ds.room_half if room_half is None else room_half).detach().cpu()
     props = props_on("cpu")
     if verts is None:
         verts, _faces, _ = slam.extract_mesh(joint=True)

@@ -14,9 +14,9 @@ named by a hash of the sources and the table, and loaded with ctypes;
 every pointer and the stream go as ``c_void_p``. On loading, each
 shape's entry points are bound once (``FieldShape.fn``), its size
 queries are read once (``FieldShape.size``) and checked against the
-table. ``csrc/marching.cpp`` is host code:
-``marching_lib`` builds it with the host ``c++`` the same way, on the CPU
-as on the card's machine. A failed build raises. Nothing here runs at
+table. ``csrc/marching.cpp`` and ``csrc/image.cpp`` are host code:
+``marching_lib`` and ``image_lib`` build them with the host ``c++`` the
+same way, on the CPU as on the card's machine. A failed build raises. Nothing here runs at
 import time.
 """
 
@@ -165,59 +165,96 @@ def lib() -> ctypes.CDLL:
 
 
 MARCHING_SRC = os.path.join(CSRC, "marching.cpp")
-MARCHING_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
+IMAGE_SRC = os.path.join(CSRC, "image.cpp")
+HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 _marching = None
+_image = None
+# the readers' prefetch thread may ask for a host library first
+_host_lock = threading.Lock()
 
 
 def _cxx() -> str:
     path = shutil.which("c++") or shutil.which("g++")
     if path is None:
         raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: the "
-                           "mesher's marching cubes is built with it")
+                           "mesher's marching cubes and the image decoders "
+                           "are built with it")
     return path
 
 
-def marching_path() -> str:
+def host_lib_path(src: str) -> str:
+    """Where the host source ``src`` is built: named by its stem and a hash
+    of the source and the flags."""
     h = hashlib.sha256()
-    with open(MARCHING_SRC, "rb") as f:
+    with open(src, "rb") as f:
         h.update(f.read())
-    h.update(" ".join(MARCHING_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libmf_marching_{h.hexdigest()[:16]}.so")
+    h.update(" ".join(HOST_FLAGS).encode())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"libmf_{stem}_{h.hexdigest()[:16]}.so")
 
 
-def marching_lib() -> ctypes.CDLL:
-    """The host marching-cubes library (built with c++ on first call)."""
-    global _marching
-    if _marching is not None:
-        return _marching
-    out = marching_path()
+def marching_path() -> str:
+    return host_lib_path(MARCHING_SRC)
+
+
+def _build_host(src: str) -> str:
+    """Build ``src`` with the host c++ unless its library exists; returns
+    the library's path. A failed build raises."""
+    out = host_lib_path(src)
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            res = subprocess.run([_cxx()] + MARCHING_FLAGS
-                                 + ["-o", tmp, MARCHING_SRC],
+            res = subprocess.run([_cxx()] + HOST_FLAGS + ["-o", tmp, src],
                                  capture_output=True, text=True)
             if res.returncode != 0:
-                raise RuntimeError(f"c++ failed on marching.cpp "
+                raise RuntimeError(f"c++ failed on {os.path.basename(src)} "
                                    f"({res.returncode}):\n{res.stderr}")
             os.replace(tmp, out)
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
-    handle = ctypes.CDLL(out)
-    handle.mc_extract.restype = ctypes.c_int
-    handle.mc_extract.argtypes = [
-        _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
-        ctypes.c_float, ctypes.POINTER(ctypes.POINTER(ctypes.c_double)),
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
-        ctypes.POINTER(ctypes.c_int64)]
-    handle.mc_free.restype = None
-    handle.mc_free.argtypes = [_P]
-    _marching = handle
-    return _marching
+    return out
+
+
+def marching_lib() -> ctypes.CDLL:
+    """The host marching-cubes library (built with c++ on first call)."""
+    global _marching
+    with _host_lock:
+        if _marching is None:
+            handle = ctypes.CDLL(_build_host(MARCHING_SRC))
+            handle.mc_extract.restype = ctypes.c_int
+            handle.mc_extract.argtypes = [
+                _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_float, ctypes.c_float,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_double)),
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+                ctypes.POINTER(ctypes.c_int64)]
+            handle.mc_free.restype = None
+            handle.mc_free.argtypes = [_P]
+            _marching = handle
+        return _marching
+
+
+def image_lib() -> ctypes.CDLL:
+    """The host image decoders, ``csrc/image.cpp``: PNG unfiltering and
+    baseline JPEG (built with c++ on first call)."""
+    global _image
+    with _host_lock:
+        if _image is None:
+            handle = ctypes.CDLL(_build_host(IMAGE_SRC))
+            i64, s = ctypes.c_int64, ctypes.c_char_p
+            pint = ctypes.POINTER(_I)
+            handle.png_unfilter.restype = _I
+            handle.png_unfilter.argtypes = [_P, i64, i64, i64, _I, _P]
+            handle.jpeg_info.restype = _I
+            handle.jpeg_info.argtypes = [_P, i64, pint, pint, pint, s, _I]
+            handle.jpeg_decode.restype = _I
+            handle.jpeg_decode.argtypes = [_P, i64, _I, _I, _P, s, _I]
+            _image = handle
+        return _image
 
 
 def check(err: int, what: str) -> None:

@@ -74,6 +74,12 @@ def kf_downsample_indices(H: int, W: int, n_rows: int, n_cols: int,
     return rr.reshape(-1), cc.reshape(-1)
 
 
+def make_frame_rays(direction: torch.Tensor, rgb: torch.Tensor,
+                    depth: torch.Tensor) -> torch.Tensor:
+    """Pack a frame into the ray layout [H, W, 7] = (dir, rgb, depth)."""
+    return torch.cat([direction, rgb, depth[..., None]], dim=-1)
+
+
 def add_keyframe(state: SlamState, frame_rays: torch.Tensor, frame_id: int,
                  row_idx: torch.Tensor, col_idx: torch.Tensor) -> None:
     """Store a downsampled keyframe in slot n_kf (in place)."""

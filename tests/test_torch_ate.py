@@ -100,6 +100,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "mipsfusion_tpu_torch/slam/logger.py",
                  "mipsfusion_tpu_torch/eval/recon.py",
                  "mipsfusion_tpu_torch/datasets/dataset.py",
+                 "mipsfusion_tpu_torch/datasets/image.py",
                  "mipsfusion_tpu_torch/parallel/sharding.py",
                  "mipsfusion_tpu_torch/parallel/__init__.py"):
         assert must in rel, must

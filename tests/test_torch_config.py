@@ -31,20 +31,31 @@ def test_load_config_matches_jax(path, monkeypatch):
 
 
 def test_every_other_config_matches_or_raises(monkeypatch):
-    """The remaining configs: where the loader reads one, it reads what
-    PyYAML reads; the FastCaMo scene files (block sequences) raise."""
+    """Every file in configs/ (the scene files' block sequences
+    included) reads as PyYAML reads it: the same dict, types included."""
     monkeypatch.chdir(ROOT)
-    raised = []
-    for path in sorted(glob.glob(os.path.join(ROOT, "configs/*/*.yaml"))):
-        try:
-            out = load_config(path)
-        except YamlSubsetError:
-            raised.append(os.path.relpath(path, ROOT))
-            continue
-        assert repr(out) == repr(jload(path)), path
-    assert "configs/FastCaMo-synth/apartment_1.yaml" in raised
-    assert not [p for p in raised if p.startswith("configs/synthetic")]
+    paths = sorted(glob.glob(os.path.join(ROOT, "configs/**/*.yaml"),
+                             recursive=True))
+    assert len(paths) == 35
+    for path in paths:
+        assert repr(load_config(path)) == repr(jload(path)), path
+    assert load_config("configs/ScanNet/scene0000.yaml")["mapping"][
+        "bound"] == [[-0.1, 8.6], [-0.1, 8.9], [-0.3, 3.3]]
 
+
+@pytest.mark.parametrize("text", [
+    "a:\n  - 1\n  - 2",                     # deeper than the key
+    "a:\n- 1\n- 2\nb: 3",                  # at the key's indent
+    "a:\n- - -0.1\n  - 8.6\n- - 1\n  -   2",  # nested, compact
+    "a:\n  -   - 1\n      - 2\n  - - 3",     # nested, wider gaps
+    "a:\n-\n  - 1\n  - 2\n-\n- 3",          # an empty item, a deeper one
+    "a:\n    - 1\n    # note\n\n    - [2, [3]]\n    - 'x'  # c",
+    "x:\n  a:\n  - 1\n  b:\n    - - 2\n  c: 3",
+    "a:\n- -1\n- .5\n- ~\n- True\n- \"q\"",
+])
+def test_block_sequences_as_pyyaml_reads_them(text):
+    import yaml
+    assert repr(parse_yaml_subset(text)) == repr(yaml.safe_load(text))
 
 def test_flagship_orbit_is_the_merged_yaml(monkeypatch):
     monkeypatch.chdir(ROOT)
@@ -69,13 +80,17 @@ def test_scalars_and_flow_lists_as_pyyaml_reads_them(text, value):
 
 
 @pytest.mark.parametrize("text", [
-    "a:\n  - 1\n  - 2",              # block sequence
+    "a:\n  - b: 1",                  # a mapping inside a sequence
+    "a:\n  -\n    b: 1",
+    "a:\n- 1\n  - 2",                # an item continued deeper
+    "a:\n  - 1\n b: 2",
     "a: {b: 1}",                     # flow mapping
     "a: &x 1",                       # anchor
     "a: *x",                         # alias
     "a: !!float 1",                  # tag
     "a: |\n  text",                  # block scalar
     "a: 1e-5",                       # PyYAML reads a string here
+    "a: -.5", "a:\n- +.5",
     "a: 0x1f", "a: 017", "a: 1:30",
     "a: 1\na: 2",                    # duplicate key
     "a: [1, 2",                      # unterminated flow list

@@ -31,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-from mipsfusion_tpu.config import load_config as j_load_config
 from mipsfusion_tpu.models import scene_rep as jsr
 from mipsfusion_tpu.ops.encoding import triplane_encode as j_triplane_encode
 from mipsfusion_tpu_torch.config import load_config
@@ -50,17 +49,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # shape name -> (config file, the loader that reads it, E, K1's packed size)
 CASES = {
     "cp": ("configs/synthetic/orbit_fast_cp.yaml", load_config, 44, 40272),
-    "fcl": ("configs/FastCaMo-large/fastcamo_large.yaml", j_load_config, 52,
+    "fcl": ("configs/FastCaMo-large/fastcamo_large.yaml", load_config, 52,
             42320),
 }
 SHAPE_NAMES = sorted(CASES)
 
 
 def _config(name):
-    """The shape's config file, merged (inherit_from resolves against the
-    repository root). The FastCaMo files hold block sequences, which the
-    port's loader refuses (the file readers are not ported), so the JAX
-    package's PyYAML loader reads that one."""
+    """The shape's config file, merged by the port's loader
+    (inherit_from resolves against the repository root)."""
     path, loader, _, _ = CASES[name]
     cwd = os.getcwd()
     os.chdir(ROOT)
