@@ -148,6 +148,18 @@ Phases (any failure raises; the exit code is then non-zero):
                ms, the decode ms a frame against the track ms; the joint
                mesh at mesh.voxel_final scored against the analytic SDF
                (printed, not held).
+ 16. programs - the stage programs (slam/programs.py: local BA, refine,
+               track, the first fit's chunk as CUDA graphs, which phases
+               5-15 ran through, printing per run the graphs, calls,
+               replays, capture seconds and graph memory): on phase 5's
+               orbit and phase 6's outback at seed 0, after their runs,
+               each program's replay against the stage function called
+               eagerly on copies of the same inputs from identically
+               seeded generators, the same bits, three times; the stage
+               ms of both ways (device, between CUDA events, and host);
+               the graphs, their capture seconds and memory, the peak
+               memory; the copies that pass a submap's parameters and
+               moments to the BA program against one graph per submap.
 The kernels' JSON line comes second to last; the last line is
 {"ok": true, "device": {...}}.
 
@@ -177,6 +189,10 @@ labels, alone.
     python3 chip_smoke.py --files-only
 
 runs phases 1-2 and then phase 15 alone.
+
+    python3 chip_smoke.py --programs-only
+
+runs phases 1-2, the orbit and the outback at seed 0, and phase 16.
 
     python3 chip_smoke.py --sharded-only
 
@@ -987,6 +1003,8 @@ def _run_path(slam):
     if not all(t.is_cuda for f in slam.fields if f is not None
                for t in f.parameters()):
         _fail("field parameters are not on the GPU")
+    print("programs (per stage: graphs, calls, replays, capture s, graph "
+          "bytes): " + json.dumps(slam.programs.stats()))
     return res, counts, wall
 
 
@@ -1014,6 +1032,7 @@ def phase_slam(n_frames: int = 45):
         _fail(f"orbit n_submaps {res['n_submaps']} != 1")
     RUNS["orbit"] = {"ate": ate, "fps": res["fps"],
                      "stage_ms": slam.stage_ms()}
+    SYSTEMS["orbit"] = (slam, ds)
     # a run is reproducible: the same config and seed again give the same
     # poses and field, bit for bit
     again = MIPSFusionTorch(cfg, dataset=ds, device=dev)
@@ -1057,6 +1076,12 @@ def phase_outback(n_frames: int = 200, seed: int = 0, spawn=None,
           f"(frame, flag) {slam.switch_events}  peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"outback launches {counts}  stage calls {calls}")
+    if seed == 0:
+        print(f"outback seed 0 launches {counts}, before the stage "
+              f"programs' map optimizer "
+              f"{PARENT_OUTBACK_LAUNCHES}: equal "
+              f"{all(counts[k] == v for k, v in PARENT_OUTBACK_LAUNCHES.items())}")
+        SYSTEMS["outback"] = (slam, ds)
     print("outback stage ms (CUDA events, mean per call): "
           + json.dumps({k: round(v, 3) for k, v in slam.stage_ms().items()}))
     RUNS[("outback", seed)] = {"ate": ate, "fps": res["fps"],
@@ -1913,6 +1938,13 @@ def record_label(rows, name, label, errs, fn, plain_ms, n, kind, shape):
 # checks, and at least one must close a loop, so that switch back, switch
 # BA and PGO run.
 OUTBACK_SEEDS = (0, 1, 2)
+# K1-K4's launches on the outback at seed 0 on the tree before the stage
+# programs and their map optimizer (PERF.md section 6)
+PARENT_OUTBACK_LAUNCHES = {"field_forward": 5767, "decoder_backward": 4772,
+                           "plane_backward": 2752, "x_backward": 3760}
+# the systems of phase 5's orbit and phase 6's outback at seed 0, which
+# phase 16 holds each stage program's replay against
+SYSTEMS = {}
 
 # each SLAM run's ATE, FPS and stage times by phase ("orbit"; ("outback",
 # seed)), for phase 14's bounds against the unsharded runs
@@ -2600,6 +2632,245 @@ def phase_files(n_frames: int = FILES_FRAMES):
     return counts
 
 
+# ------------------------------------------------------ 16. programs
+
+TRACK_FIELDS = ("pose", "loss", "loss_ewma", "accepted", "drift_res",
+                "armed", "fired", "rescued", "ss_scale")
+
+
+def _field_copy(slam, m: int, fresh: bool = False):
+    """A copy of submap m's field and a map optimizer for it: the active
+    submap's moments, or a fresh one (``fresh``, or another submap)."""
+    from mipsfusion_tpu_torch.models import scene_rep as sr
+    from mipsfusion_tpu_torch.slam import checkpoint as ck
+    from mipsfusion_tpu_torch.slam import mapper
+    field = sr.Field(slam.fields[m].params(detach=True))
+    opt = mapper.make_map_optimizer(field, slam.mcfg)
+    if m == slam.active_id and not fresh:
+        ck.adam_from_leaves(opt, field, ck.adam_to_leaves(slam.map_opt,
+                                                          slam.field))
+    return field, opt
+
+
+def _moments(field, opt):
+    """The map optimizer's counts and moments (in the JAX package's leaf
+    order) as tensors."""
+    import torch
+    from mipsfusion_tpu_torch.slam import checkpoint as ck
+    return [torch.as_tensor(a) for a in ck.adam_to_leaves(opt, field)]
+
+
+def stage_pairs(slam, ds, i: int):
+    """Per programmed stage at frame i of a finished run, (its program's
+    call, the stage function's call): each runs the stage on its own
+    copies of the field, the optimizer and the pose store from a
+    generator seeded as the loop seeds it, records CUDA events around the
+    stage call alone into the list it is given, and returns what the two
+    must agree on bit for bit (results, parameters, moments, the
+    committed poses). Refine takes the first inactive submap (the active
+    one on a one-submap run) with a fresh optimizer; the fit one chunk of
+    the first fit (``mapping.first_iters_chunk``) on the active field."""
+    import dataclasses
+    import torch
+    from mipsfusion_tpu_torch.slam import mapper, tracker
+    packed = ds.packed(i)
+
+    def timed(ev, fn, *a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        out = fn(*a, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        ev.append((e0, e1, time.perf_counter() - t0))
+        return out
+
+    def ba(run, m, args, stage, fresh, **kw):
+        def call(ev):
+            field, opt = _field_copy(slam, m, fresh)
+            res = timed(ev, run, field, opt, *args,
+                        slam._generator(stage, i), **kw)
+            return tuple(res), field.params(detach=True), _moments(field, opt)
+        return call
+
+    inactive = [m for m in range(slam._host_used)
+                if m != slam.active_id and slam.fields[m] is not None]
+    m_ref = inactive[0] if inactive else slam.active_id
+    bind = slam._host_kf_bind
+    mask = ((np.arange(bind.shape[0]) < slam.state.n_kf)
+            & ((bind[:, 0] == m_ref) | (bind[:, 1] == m_ref)))
+    if inactive:
+        mask &= bind[:, 0] != slam.active_id
+    ba_args = slam._ba_args(packed, i)
+    ref_args = slam._refine_args(m_ref, mask)
+    targs, levers = slam._track_args(packed, i)
+
+    def track(run):
+        def call(ev):
+            st = slam.state
+            a = list(targs)
+            a[6] = slam._generator("track", i)
+            a[8] = dataclasses.replace(
+                st, est_c2w=st.est_c2w.clone(),
+                est_c2w_rel=st.est_c2w_rel.clone(),
+                keyframe_ref=st.keyframe_ref.clone())
+            res = timed(ev, run, *a, **levers)
+            return ([getattr(res, k) for k in TRACK_FIELDS], a[8].est_c2w,
+                    a[8].est_c2w_rel, a[8].keyframe_ref)
+        return call
+
+    chunk = slam.init_chunk
+    if not 0 < chunk < slam.mcfg.first_iters:
+        chunk = slam.mcfg.first_iters
+    rays = packed.reshape(-1, 7)
+
+    def fit(run, **kw):
+        def call(ev):
+            field, opt = _field_copy(slam, slam.active_id)
+            loss = timed(ev, run, field, opt, rays, slam.fcfg, slam.consts,
+                         slam.mcfg, slam.lw, chunk,
+                         slam._round_rays(slam.mcfg.sample),
+                         slam._generator("init", 10_000 + i), **kw)
+            return loss, field.params(detach=True), _moments(field, opt)
+        return call
+
+    progs = slam.programs
+    return {
+        "ba": (ba(progs.local_ba, slam.active_id, ba_args, "ba", False,
+                  optim_cur=slam.optim_cur),
+               ba(mapper.local_ba, slam.active_id, ba_args, "ba", False,
+                  optim_cur=slam.optim_cur)),
+        "refine": (ba(progs.local_ba, m_ref, ref_args, "refine", True,
+                      include_current=False),
+                   ba(mapper.local_ba, m_ref, ref_args, "refine", True,
+                      include_current=False)),
+        "track": (track(progs.track_frame_update),
+                  track(tracker.track_frame_update)),
+        "fit": (fit(progs.init_submap_fit, chunk=chunk),
+                fit(mapper.init_submap_fit))}
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_bits_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_bits_equal(x, y)
+                                        for x, y in zip(a, b))
+    return a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def program_checks(slam, ds, label: str, reps: int = 3) -> dict:
+    """Each programmed stage at the run's last frame: the program called
+    once (a replay, or the key's capture where the run never reached it),
+    then ``reps`` times against the stage function, each replay the
+    function's bits; per stage the mean device ms between CUDA events
+    and host ms (synchronised) of a call both ways. Returns them."""
+    i = ds.num_frames - 1
+    rows = {}
+    for stage, (prog, eager) in stage_pairs(slam, ds, i).items():
+        first = []
+        prog(first)
+        ev_p, ev_e = [], []
+        same_bits = True
+        for _ in range(reps):
+            same_bits &= _bits_equal(prog(ev_p), eager(ev_e))
+        row = {"same_bits": same_bits}
+        for way, ev in (("program", ev_p), ("eager", ev_e)):
+            row[f"{way}_ms"] = float(np.mean([a.elapsed_time(b)
+                                              for a, b, _ in ev]))
+            row[f"{way}_host_ms"] = float(np.mean([h for _, _, h in ev])
+                                          * 1e3)
+        rows[stage] = row
+        print(f"programs {label} {stage}: replay == eager bit for bit "
+              f"{same_bits}  program {row['program_ms']:.3f} ms (host "
+              f"{row['program_host_ms']:.3f})  eager {row['eager_ms']:.3f} "
+              f"ms (host {row['eager_host_ms']:.3f})")
+        if not same_bits:
+            _fail(f"programs {label}: the {stage} program's replay differs "
+                  f"from the eager call")
+    return rows
+
+
+def template_copy_ms(slam, reps: int = 20) -> float:
+    """Device ms of one BA call's parameter and moment copies (the active
+    submap's into the program's template and back)."""
+    import torch
+    prog = next(p for p in slam.programs.programs.values()
+                if p.stage == "ba")
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        prog.template.load(slam.field, slam.map_opt)
+        prog.template.store(slam.field, slam.map_opt)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def _programs_runs():
+    """Phase 5's orbit (45 frames, one submap) and phase 6's outback at
+    seed 0 (200 frames, the manager), run here for --programs-only."""
+    import torch
+    from mipsfusion_tpu_torch.config import flagship_orbit, flagship_outback
+    from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
+    from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
+    dev = torch.device("cuda")
+    for label, cfg, n, traj, span in (
+            ("orbit", flagship_orbit(use_manager=False), 45, "orbit",
+             45 / 200.0),
+            ("outback", flagship_outback(use_manager=True, seed=0), 200,
+             "outback", 1.0)):
+        cfg["data"]["output"] = None
+        ds = SyntheticDataset(cfg, n_frames=n, trajectory=traj, span=span,
+                              device=dev)
+        slam = MIPSFusionTorch(cfg, dataset=ds, device=dev)
+        res, counts, wall = _run_path(slam)
+        print(f"programs run {label}: ATE RMSE "
+              f"{res['absolute_translational_error.rmse'] * 1000:.2f} mm  "
+              f"tracked FPS {res['fps']:.2f}  wall {wall:.1f} s  submaps "
+              f"{res['n_submaps']}  switches {slam.switch_events}  "
+              f"launches {counts}")
+        print(f"programs run {label} stage ms: " + json.dumps(
+            {k: round(v, 3) for k, v in slam.stage_ms().items()}))
+        SYSTEMS[label] = (slam, ds)
+
+
+def phase_programs():
+    """Phase 16: at each programmed stage's key on the flagship orbit and
+    the outback (phase 5's and 6's systems, after their runs), the
+    program's replay against the eager call on the same inputs and
+    draws, bit for bit; the stage ms of both ways; the graphs, their
+    capture seconds and memory, the run's peak memory; the cost of
+    passing the parameters as arguments (the copies a BA call makes)
+    against one graph per submap."""
+    import torch
+    if "orbit" not in SYSTEMS:
+        _programs_runs()
+    out = {}
+    for label in ("orbit", "outback"):
+        slam, ds = SYSTEMS[label]
+        out[label] = program_checks(slam, ds, label)
+        stats = slam.programs.stats()
+        print(f"programs {label}: " + json.dumps(stats))
+        graphs = sum(s["programs"] for s in stats.values())
+        cap_s = sum(s["capture_s"] for s in stats.values())
+        mib = sum(s["graph_bytes"] for s in stats.values()) / 2**20
+        ba = stats["ba"]
+        used = int(slam.state.localMLP_info[:, 0].sum().item())
+        print(f"programs {label}: {graphs} graphs, capture {cap_s:.2f} s, "
+              f"graph memory {mib:.1f} MiB, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"parameters as arguments: copies {template_copy_ms(slam):.4f}"
+              f" ms a BA call; one BA graph per submap instead: {used} x "
+              f"{ba['graph_bytes'] / 2**20:.1f} MiB and {used} x "
+              f"{ba['capture_s'] / ba['programs']:.2f} s of capture")
+    return out
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2630,6 +2901,10 @@ def main(argv=None):
     ap.add_argument("--files-only", action="store_true",
                     help="phases 1-2, then only phase 15 (the decoders and "
                          "the FastCaMo-large run through the file reader)")
+    ap.add_argument("--programs-only", action="store_true",
+                    help="phases 1-2, then only phase 16 (each stage "
+                         "program's replay against the eager call on the "
+                         "orbit and the outback)")
     ap.add_argument("--sharded-only", action="store_true",
                     help="phases 1-2, then only phase 14 (the orbit and the "
                          "outback on the sharded mesh, against their "
@@ -2640,10 +2915,13 @@ def main(argv=None):
                       args.outback_spawn)
         return 0
     if (args.scale_only or args.stress_only or args.hash_only
-            or args.consistency_only or args.sharded_only or args.files_only):
+            or args.consistency_only or args.sharded_only or args.files_only
+            or args.programs_only):
         phase_device()
         phase_build(check_hmma=False)
-        if args.files_only:
+        if args.programs_only:
+            print(json.dumps({"programs": phase_programs()}))
+        elif args.files_only:
             print(json.dumps({"launches_files": phase_files()}))
         elif args.sharded_only:
             counts, by_dev = phase_sharded()
@@ -2695,6 +2973,7 @@ def main(argv=None):
     phase_consistency_kernels(rows, cons_sizes)
     sharded_counts, sharded_by_dev = phase_sharded()
     files_counts = phase_files()
+    programs = phase_programs()
     # K0 has no SLAM caller (as triplane_encode_pallas has none in the JAX
     # package): no loop may launch it
     k0_loops = [orbit_counts["encode_forward"], cp_counts["encode_forward"],
@@ -2763,6 +3042,7 @@ def main(argv=None):
             "plain_ms_by_shape": r["plain_ms"],
             "bound_ms_by_shape": r["bound_ms"],
             "bound_by_shape": r["bound_by"]})
+    print(json.dumps({"programs": programs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -237,6 +237,22 @@ def sdf2weights(sdf: torch.Tensor, z_vals: torch.Tensor,
     return weights / (weights.sum(-1, keepdim=True) + 1e-8)
 
 
+def ray_samples(cfg: FieldConfig) -> int:
+    """Samples a ray: the depth-guided ones, then the uniform ones."""
+    return cfg.n_range_d + max(cfg.n_samples_d, 0)
+
+
+def draw_u(n: int, cfg: FieldConfig,
+           generator: Optional[torch.Generator], device
+           ) -> Optional[torch.Tensor]:
+    """The stratified z perturbation of n rays, [n, S] uniform in [0, 1),
+    as ``sample_z_vals`` draws it (None when ``cfg.perturb`` is off)."""
+    if not cfg.perturb:
+        return None
+    return torch.rand((n, ray_samples(cfg)), generator=generator,
+                      device=device)
+
+
 def sample_z_vals(target_d: torch.Tensor, cfg: FieldConfig,
                   generator: Optional[torch.Generator] = None,
                   u: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -264,8 +280,7 @@ def sample_z_vals(target_d: torch.Tensor, cfg: FieldConfig,
         upper = torch.cat([mids, z_vals[..., -1:]], -1)
         lower = torch.cat([z_vals[..., :1], mids], -1)
         if u is None:
-            u = torch.rand(z_vals.shape, generator=generator, device=dev,
-                           dtype=dt)
+            u = draw_u(n, cfg, generator, dev)
         z_vals = lower + (upper - lower) * u
     return z_vals
 
@@ -407,12 +422,10 @@ def forward_losses_T_sharded(params_reps: Sequence[Dict],
     primary = target_d[0].device
     sizes = [t.shape[0] for t in target_d]
     n = sum(sizes)
-    n_samples = cfg.n_range_d + max(cfg.n_samples_d, 0)   # sample_z_vals'
     us = [None] * len(sizes)
     if cfg.perturb:
         if u is None:
-            u = torch.rand((n, n_samples), generator=generator,
-                           device=primary, dtype=target_d[0].dtype)
+            u = draw_u(n, cfg, generator, primary)
         us = [b.to(t.device) for b, t in zip(u.split(sizes), target_d)]
     total = None
     for k in range(len(sizes)):
@@ -421,7 +434,7 @@ def forward_losses_T_sharded(params_reps: Sequence[Dict],
         sums = loss_sums_T(rend, target_rgbT[k], target_d[k], cfg,
                            emd_w).to(primary)
         total = sums if total is None else total + sums
-    return losses_from_sums(total, n, n_samples, emd_w)
+    return losses_from_sums(total, n, ray_samples(cfg), emd_w)
 
 
 def run_network_sdf_T_sharded(params_reps: Sequence[Dict], ptsT: torch.Tensor,

@@ -556,14 +556,14 @@ def stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-_count_lock = threading.Lock()
+count_lock = threading.Lock()
 
 
 def count_launch(fn, device) -> None:
     """One more launch of a kernel wrapper ``fn``, in total (``launches``)
     and on the device's ordinal (``launches_by_device``). Autograd runs
     each device's backward on its own thread, hence the lock."""
-    with _count_lock:
+    with count_lock:
         fn.launches += 1
         fn.launches_by_device[device.index] = \
             fn.launches_by_device.get(device.index, 0) + 1

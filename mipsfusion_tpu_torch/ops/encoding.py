@@ -203,6 +203,22 @@ def _corners(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, op,
     return out
 
 
+_level_cache = {}
+
+
+def _level_tables(cfg: HashGridConfig, dtype, device):
+    """The level scales [L] and resolutions [L, 1] on ``device``, copied
+    from the host once per config, type and device: a copy from the host
+    inside a stage would stop a CUDA graph's capture."""
+    key = (cfg, dtype, torch.device(device))
+    if key not in _level_cache:
+        _level_cache[key] = (
+            torch.tensor(cfg.level_scales(), dtype=dtype, device=device),
+            torch.tensor(cfg.level_resolutions(), dtype=torch.int64,
+                         device=device)[:, None])
+    return _level_cache[key]
+
+
 def _hash_taps(x: torch.Tensor, cfg: HashGridConfig):
     """Corner rows and weights of points x [n, 3]: rows [8, L, n] into the
     table flattened to [L * T, F], per-axis weights [3, 2, L, n] (lower,
@@ -212,9 +228,7 @@ def _hash_taps(x: torch.Tensor, cfg: HashGridConfig):
     dev = x.device
     L, T = cfg.n_levels, cfg.table_size
     Ld = cfg.n_dense
-    scales = torch.tensor(cfg.level_scales(), dtype=x.dtype, device=dev)
-    res = torch.tensor(cfg.level_resolutions(), dtype=torch.int64,
-                       device=dev)[:, None]                      # [L, 1]
+    scales, res = _level_tables(cfg, x.dtype, dev)               # [L], [L, 1]
     offset = (torch.arange(L, device=dev) * T)[:, None]
     pos = x.T[:, None, :] * scales[None, :, None] + 0.5          # [3, L, n]
     grid0 = torch.floor(pos)

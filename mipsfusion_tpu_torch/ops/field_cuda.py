@@ -10,7 +10,11 @@ PyTorch version and a CUDA tensor with its kernel (K1
 (one of ``_build.SHAPES``; any other shape raises);
 ``<wrapper>.launches`` counts kernel launches
 (``launches_by_device`` per device). A launch goes to the tensors'
-device, on that device's current stream.
+device, on that device's current stream. A CUDA graph's replay runs no
+Python, so a stage program (``slam/programs.py``) records what its
+capture counted (``launch_counters`` before and after) and adds it once a
+replay (``add_launch_counts``): the counts stay those of the kernels the
+device ran.
 
 Field parameters are the JAX tree's layout:
 ``{"planes": {"s0", "s1"(, "s2"), "cp"}, "decoder": {layer: {"w", "b"}}}``.
@@ -375,6 +379,43 @@ def reset_launch_counts() -> None:
         fn.launches_by_device = {}
     field_forward.sdf_launches_by_n = {}
     decoder_backward.dw_launches = 0
+
+
+def launch_counters() -> Dict:
+    """Every launch counter of the five wrappers, as {(wrapper, counter):
+    count} for the totals and K2's launches with weight gradients and
+    {(wrapper, counter, key): count} for the per-device counts and K1's
+    sdf-only launches by point count."""
+    out = {}
+    for name, fn in KERNEL_WRAPPERS.items():
+        out[(name, "launches")] = fn.launches
+        for d, c in fn.launches_by_device.items():
+            out[(name, "launches_by_device", d)] = c
+    out[("decoder_backward", "dw_launches")] = decoder_backward.dw_launches
+    for n, c in field_forward.sdf_launches_by_n.items():
+        out[("field_forward", "sdf_launches_by_n", n)] = c
+    return out
+
+
+def launch_count_delta(before: Dict, after: Dict) -> Dict:
+    """The counters that moved from ``before`` to ``after``
+    (``launch_counters``), by how much."""
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+def add_launch_counts(delta: Dict, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (``launch_count_delta``) to the wrappers'
+    counters: a replay's launches, or with times -1 a capture's, which
+    launched nothing."""
+    with _build.count_lock:
+        for k, c in delta.items():
+            fn = KERNEL_WRAPPERS[k[0]]
+            if len(k) == 2:
+                setattr(fn, k[1], getattr(fn, k[1]) + times * c)
+            else:
+                d = getattr(fn, k[1])
+                d[k[2]] = d.get(k[2], 0) + times * c
 
 
 def launch_counts(by_device: bool = False) -> Dict:

@@ -49,14 +49,19 @@ def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
     return torch.where(quat[..., 0:1] < 0, -quat, quat)
 
 
+def _bottom_row(top: torch.Tensor) -> torch.Tensor:
+    """The rows [0, 0, 0, 1] under top [..., 3, 4], made on its device
+    (an element set from a Python number would copy from the host, which
+    a CUDA graph cannot capture)."""
+    row = torch.eye(4, dtype=top.dtype, device=top.device)[3:]
+    return row.expand(top.shape[:-2] + (1, 4))
+
+
 def qt_to_matrix(rot_quat: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     """[..., 4] quaternion + [..., 3] translation -> [..., 4, 4] SE3."""
     R = quaternion_to_matrix(rot_quat)
     top = torch.cat([R, trans[..., :, None]], dim=-1)            # [..., 3, 4]
-    bottom = torch.zeros(top.shape[:-2] + (1, 4), dtype=R.dtype,
-                         device=R.device)
-    bottom[..., 0, 3] = 1.0
-    return torch.cat([top, bottom], dim=-2)
+    return torch.cat([top, _bottom_row(top)], dim=-2)
 
 
 def pose_inverse(T: torch.Tensor) -> torch.Tensor:
@@ -64,9 +69,7 @@ def pose_inverse(T: torch.Tensor) -> torch.Tensor:
     R_T = T[..., :3, :3].transpose(-1, -2)
     t = -(R_T @ T[..., :3, 3:])
     top = torch.cat([R_T, t], dim=-1)
-    bottom = torch.zeros_like(T[..., 3:, :])
-    bottom[..., 0, 3] = 1.0
-    return torch.cat([top, bottom], dim=-2)
+    return torch.cat([top, _bottom_row(top)], dim=-2)
 
 
 def _skew(v: torch.Tensor) -> torch.Tensor:
@@ -96,10 +99,7 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     V = eye + B[..., None, None] * wx + C[..., None, None] * wx2
     t = (V @ rho[..., None])[..., 0]
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.zeros(top.shape[:-2] + (1, 4), dtype=xi.dtype,
-                         device=xi.device)
-    bottom[..., 0, 3] = 1.0
-    return torch.cat([top, bottom], dim=-2)
+    return torch.cat([top, _bottom_row(top)], dim=-2)
 
 
 def se3_log(T: torch.Tensor) -> torch.Tensor:

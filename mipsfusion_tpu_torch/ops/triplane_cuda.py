@@ -9,8 +9,10 @@ and ``TriplaneEncode`` / ``triplane_encode`` the custom VJP of
 plain PyTorch version and a CUDA tensor with the kernel in
 ``csrc/triplane.cuh`` at the field's shape (one of ``_build.SHAPES``;
 any other shape raises); ``<wrapper>.launches`` counts kernel launches
-(``launches_by_device`` per device). A launch goes to the tensors'
-device, on that device's current stream.
+(``launches_by_device`` per device; a CUDA graph's replays included,
+through ``field_cuda.add_launch_counts``, which covers these wrappers
+too). A launch goes to the tensors' device, on that device's current
+stream.
 
 The encode op takes and returns the reference's row layout (x [N, 3] ->
 [N, E]); K3 and K4 take points-minor arrays: x [3, N], d_embed [E, N].

@@ -11,10 +11,10 @@ with the active submap's Adam moments as ``leaf_<j>`` in the JAX
 package's leaf order.
 
 Optimizer state: the JAX map optimizer (``optax.multi_transform`` of
-``scale_by_adam`` per parameter group) and the port's ``torch.optim.Adam``
+``scale_by_adam`` per parameter group) and the port's ``mapper.MapAdam``
 (one group per JAX group, the same betas, eps and weight decay) hold the
-same numbers: optax's ``count``, ``mu`` and ``nu`` are Adam's ``step``,
-``exp_avg`` and ``exp_avg_sq``. The leaves are, group by group in sorted
+same numbers: optax's ``count``, ``mu`` and ``nu`` are the state's
+``step`` (one tensor a group), ``exp_avg`` and ``exp_avg_sq``. The leaves are, group by group in sorted
 order (``decoder``, then ``embed``), the group's count, then its ``mu``
 and its ``nu`` over the group's parameters in sorted key order (decoder
 layers ``rgb, sdf0, sdf1, trunk0, trunk1``, each ``b, w``; planes
@@ -154,7 +154,8 @@ def _jax_group_order(field: Field):
     return [(0, dec), (1, planes)]
 
 
-def adam_to_leaves(opt: torch.optim.Adam, field: Field) -> List[np.ndarray]:
+def adam_to_leaves(opt: torch.optim.Optimizer,
+                   field: Field) -> List[np.ndarray]:
     """The port's map optimizer state as the JAX package's leaves."""
     leaves = []
     for _, params in _jax_group_order(field):
@@ -170,10 +171,11 @@ def adam_to_leaves(opt: torch.optim.Adam, field: Field) -> List[np.ndarray]:
     return leaves
 
 
-def adam_from_leaves(opt: torch.optim.Adam, field: Field,
+def adam_from_leaves(opt: torch.optim.Optimizer, field: Field,
                      leaves: List[np.ndarray]) -> bool:
-    """Load JAX-order leaves into the port's Adam (in place); False (and
-    nothing loaded) when they do not fit the layout."""
+    """Load JAX-order leaves into the port's map optimizer (in place; one
+    count tensor a group, on its parameters' device); False (and nothing
+    loaded) when they do not fit the layout."""
     groups = _jax_group_order(field)
     want = []
     for _, params in groups:
@@ -184,12 +186,13 @@ def adam_from_leaves(opt: torch.optim.Adam, field: Field,
         return False
     it = iter(leaves)
     for _, params in groups:
-        step = float(next(it))
+        step = torch.tensor(float(next(it)), dtype=torch.float32,
+                            device=params[0].device)
         mu = [next(it) for _ in params]
         nu = [next(it) for _ in params]
         for p, m, v in zip(params, mu, nu):
             opt.state[p] = {
-                "step": torch.tensor(step, dtype=torch.float32),
+                "step": step,
                 "exp_avg": torch.as_tensor(m, dtype=p.dtype,
                                            device=p.device).clone(),
                 "exp_avg_sq": torch.as_tensor(v, dtype=p.dtype,
@@ -201,7 +204,7 @@ def adam_from_leaves(opt: torch.optim.Adam, field: Field,
 
 def save_ckpt(ckpt_dir: str, state: SlamState,
               fields: List[Optional[Field]], extra: Optional[Dict] = None,
-              opt: Optional[torch.optim.Adam] = None,
+              opt: Optional[torch.optim.Optimizer] = None,
               opt_field: Optional[Field] = None) -> None:
     """Write a checkpoint directory (see the module docstring); ``opt`` is
     the map optimizer of ``opt_field``, the active submap's field."""
@@ -222,7 +225,7 @@ def save_ckpt(ckpt_dir: str, state: SlamState,
                             **{f"leaf_{j}": l for j, l in enumerate(leaves)})
 
 
-def load_opt_state(ckpt_dir: str, opt: torch.optim.Adam,
+def load_opt_state(ckpt_dir: str, opt: torch.optim.Optimizer,
                    field: Field) -> bool:
     """Restore the active submap's Adam moments saved by either package
     into ``opt`` (in place). False when the file is absent or its leaves

@@ -2,18 +2,21 @@
 
 Port of ``mipsfusion_tpu/slam/mapper.py`` (``make_map_optimizer``,
 ``init_submap_fit``, ``_kf_sampling_weights``, ``local_ba``,
-``switch_ba``). The map optimizer is one ``torch.optim.Adam`` with the
-reference's two groups (decoder: weight decay 1e-6 added to the gradient,
-eps 1e-8; the embed, i.e. the planes and CP lines or the hash table: eps
-1e-15; betas (0.9, 0.99) for both);
-the active submap's persists across its first fit and every BA until the
-next switch, and background refinement makes a fresh one per round. Pose
-optimizers are fresh per BA (``tracker.MaskedAdam``, optax.adam's
-defaults).
+``switch_ba``). The map optimizer is one ``MapAdam`` with the reference's
+two groups (decoder: weight decay 1e-6 added to the gradient, eps 1e-8;
+the embed, i.e. the planes and CP lines or the hash table: eps 1e-15;
+betas (0.9, 0.99) for both); the active submap's persists across its
+first fit and every BA until the next switch, and background refinement
+makes a fresh one per round. Pose optimizers are fresh per BA
+(``tracker.MaskedAdam``, optax.adam's defaults).
 
-Random draws (ray sources, ray and pixel indices) come from a
-``torch.Generator``; ``local_ba`` and ``switch_ba`` also take them passed
-in (``draws``), so tests can feed both packages the same draws.
+Random draws (ray sources, ray and pixel indices, the z perturbation)
+come from a ``torch.Generator``; ``init_submap_fit``, ``local_ba`` and
+``switch_ba`` also take them passed in (``draws``; ``us`` the
+perturbation), so tests can feed both packages the same draws and a
+stage program (``slam/programs.py``) can make them before its replay:
+``fit_draws`` and ``ba_draws`` draw what the functions draw, in their
+order.
 
 With a mesh of several devices (``parallel/sharding.py``), the first fits
 and local BA split each iteration's ray batch over it (JAX's
@@ -63,8 +66,64 @@ class MapConfig:
             optim_cur=bool(m["optim_cur"]))
 
 
-def make_map_optimizer(field: sr.Field, mcfg: MapConfig) -> torch.optim.Adam:
-    return torch.optim.Adam([
+class MapAdam(torch.optim.Optimizer):
+    """optax.adam as the JAX map optimizer applies it, after weight decay
+    added to the gradient: each group's step count is one float32 tensor
+    on the parameters' device (every parameter's ``state["step"]``), and
+    the bias corrections 1 - beta^count are computed there in float32, as
+    optax computes them. A step reads nothing from the host, so a CUDA
+    graph can capture it and its replay computes what an eager step
+    does. The state holds ``torch.optim.Adam``'s keys (``step``,
+    ``exp_avg``, ``exp_avg_sq``); it is empty until the first step or
+    ``init_state``, as a fresh Adam's is."""
+
+    def __init__(self, groups, betas=(0.9, 0.99)):
+        super().__init__(groups, {"lr": 1e-3, "betas": betas, "eps": 1e-8,
+                                  "weight_decay": 0.0})
+
+    def init_state(self) -> None:
+        """Give every group without state a fresh one: count 0, zero
+        moments (what the first step would create)."""
+        for g in self.param_groups:
+            if all(p in self.state for p in g["params"]):
+                continue
+            count = torch.zeros((), device=g["params"][0].device)
+            for p in g["params"]:
+                self.state[p] = {"step": count,
+                                 "exp_avg": torch.zeros_like(p),
+                                 "exp_avg_sq": torch.zeros_like(p)}
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        self.init_state()
+        for g in self.param_groups:
+            ps = [p for p in g["params"] if p.grad is not None]
+            if not ps:
+                continue
+            b1, b2 = g["betas"]
+            grads = [p.grad for p in ps]
+            if g["weight_decay"]:
+                grads = torch._foreach_add(grads, ps,
+                                           alpha=g["weight_decay"])
+            st = [self.state[p] for p in ps]
+            m = [s["exp_avg"] for s in st]
+            v = [s["exp_avg_sq"] for s in st]
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, grads, grads, value=1.0 - b2)
+            count = st[0]["step"]
+            count.add_(1.0)
+            m_hat = torch._foreach_div(m, 1.0 - torch.pow(b1, count))
+            v_hat = torch._foreach_div(v, 1.0 - torch.pow(b2, count))
+            torch._foreach_sqrt_(v_hat)
+            torch._foreach_add_(v_hat, g["eps"])
+            torch._foreach_div_(m_hat, v_hat)
+            torch._foreach_add_(ps, m_hat, alpha=-g["lr"])
+
+
+def make_map_optimizer(field: sr.Field, mcfg: MapConfig) -> MapAdam:
+    return MapAdam([
         {"params": list(field.decoder.parameters()), "lr": mcfg.lr_decoder,
          "weight_decay": 1e-6, "eps": 1e-8},
         {"params": field.embed_params(), "lr": mcfg.lr_embed,
@@ -83,35 +142,56 @@ def _ray_devices(mesh: Optional[Mesh], n: int):
     return ray_sharded(mesh).devices()
 
 
-def init_submap_fit(field: sr.Field, opt: torch.optim.Adam,
+def _fit_draw(n_total: int, n_rays: int, generator, device):
+    return torch.randint(0, n_total, (n_rays,), generator=generator,
+                         device=device)
+
+
+def fit_draws(generator: Optional[torch.Generator], n_total: int,
+              n_rays: int, n_iters: int, fcfg: sr.FieldConfig, device):
+    """What ``init_submap_fit`` draws from ``generator`` over n_iters
+    iterations, in its order: (ray indices per iteration, z perturbation
+    per iteration or None)."""
+    idx, us = [], []
+    for _ in range(n_iters):
+        idx.append(_fit_draw(n_total, n_rays, generator, device))
+        us.append(sr.draw_u(n_rays, fcfg, generator, device))
+    return idx, us
+
+
+def init_submap_fit(field: sr.Field, opt: MapAdam,
                     frame_rays: torch.Tensor, fcfg: sr.FieldConfig,
                     consts: sr.FieldConsts, mcfg: MapConfig,
                     lw: sr.LossWeights, n_iters: int, n_rays: int,
                     generator: Optional[torch.Generator] = None,
                     mesh: Optional[Mesh] = None,
-                    draws: Optional[Sequence[torch.Tensor]] = None
+                    draws: Optional[Sequence[torch.Tensor]] = None,
+                    us: Optional[Sequence[torch.Tensor]] = None
                     ) -> torch.Tensor:
     """Fit the field to one frame at the local identity pose (the frame is
     the submap origin). frame_rays: [H*W, 7]. Returns the last loss.
     With a ``mesh`` of several devices each iteration's rays, drawn as
     without, split over it (ray data-parallelism). ``draws``: each
-    iteration's ray indices."""
+    iteration's ray indices; ``us``: each iteration's z perturbation
+    (else drawn from ``generator`` where ``fcfg.perturb``)."""
     loss = None
     n_total = frame_rays.shape[0]
+    dev = frame_rays.device
     step = (make_sharded_map_step(mesh, fcfg, lw)
             if _ray_devices(mesh, n_rays) is not None else None)
     for i in range(n_iters):
-        idx = (draws[i] if draws is not None else torch.randint(
-            0, n_total, (n_rays,), generator=generator,
-            device=frame_rays.device))
+        idx = (draws[i] if draws is not None
+               else _fit_draw(n_total, n_rays, generator, dev))
+        u = (us[i] if us is not None
+             else sr.draw_u(n_rays, fcfg, generator, dev))
         rays = frame_rays[idx]
         if step is not None:
-            loss = step(field, opt, rays, consts, generator)
+            loss = step(field, opt, rays, consts, generator, u=u)
             continue
         dirsT = rays[:, :3].T
         ret = sr.forward_losses_T(field.params(), torch.zeros_like(dirsT),
                                   dirsT, rays[:, 3:6].T, rays[:, 6:7], fcfg,
-                                  consts, generator=generator)
+                                  consts, u=u)
         loss = sr.total_loss(ret, lw)
         opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -173,7 +253,22 @@ def _draw(w: torch.Tensor, n: int, sizes: Sequence[int],
                for s in sizes])
 
 
-def local_ba(field: sr.Field, opt: torch.optim.Adam, kf_rays: torch.Tensor,
+def ba_draws(w: torch.Tensor, n_iters: int, n_total: int,
+             sizes: Sequence[int], fcfg: sr.FieldConfig,
+             generator: Optional[torch.Generator]):
+    """What ``local_ba`` draws from ``generator`` over n_iters
+    iterations with the quota weights w (``kf_sampling_weights``), in its
+    order: (per iteration (source slot, keyframe ray index, current-frame
+    ray index), per iteration the z perturbation or None). ``sizes``:
+    (rays per keyframe, current-frame rays)."""
+    draws, us = [], []
+    for _ in range(n_iters):
+        draws.append(tuple(_draw(w, n_total, sizes, generator)))
+        us.append(sr.draw_u(n_total, fcfg, generator, w.device))
+    return draws, us
+
+
+def local_ba(field: sr.Field, opt: MapAdam, kf_rays: torch.Tensor,
              kf_mask: torch.Tensor, first_kf, last_kf: torch.Tensor,
              kf_poses_local: torch.Tensor, cur_rays: torch.Tensor,
              cur_pose_local: torch.Tensor, fcfg: sr.FieldConfig,
@@ -182,7 +277,8 @@ def local_ba(field: sr.Field, opt: torch.optim.Adam, kf_rays: torch.Tensor,
              include_current: bool = True,
              optim_cur: Optional[bool] = None,
              draws: Optional[Draws] = None,
-             mesh: Optional[Mesh] = None) -> BAResult:
+             mesh: Optional[Mesh] = None,
+             us: Optional[Sequence[torch.Tensor]] = None) -> BAResult:
     """Joint map + keyframe-pose BA over one submap's keyframes.
 
     kf_rays [K, R, 7] keyframe store; kf_mask [K] membership; first_kf
@@ -194,10 +290,12 @@ def local_ba(field: sr.Field, opt: torch.optim.Adam, kf_rays: torch.Tensor,
     accumulated over pose_accum_step iterations; the first keyframe and
     slots outside the mask stay frozen, the current frame too unless
     ``optim_cur`` (default ``mcfg.optim_cur``). ``draws``: per iteration
-    (source slot, keyframe ray index, current-frame ray index). With a
-    ``mesh`` of several devices each iteration's rays and their pose rows,
-    drawn as without, split over it with the field and the poses
-    replicated; the map and pose gradients land on the primary device."""
+    (source slot, keyframe ray index, current-frame ray index); ``us``:
+    per iteration the z perturbation (else drawn from ``generator`` where
+    ``fcfg.perturb``). With a ``mesh`` of several devices each
+    iteration's rays and their pose rows, drawn as without, split over it
+    with the field and the poses replicated; the map and pose gradients
+    land on the primary device."""
     K, R, _ = kf_rays.shape
     dev = kf_rays.device
     if optim_cur is None:
@@ -218,6 +316,8 @@ def local_ba(field: sr.Field, opt: torch.optim.Adam, kf_rays: torch.Tensor,
     for i in range(mcfg.iters):
         src, ray_idx, cur_idx = (draws[i] if draws is not None else _draw(
             w, n_total, (R, cur_rays.shape[0]), generator))
+        u = (us[i] if us is not None
+             else sr.draw_u(n_total, fcfg, generator, dev))
         from_cur = src == K
         rays = torch.where(from_cur[:, None], cur_rays[cur_idx],
                            kf_rays[torch.clamp(src, max=K - 1), ray_idx])
@@ -225,14 +325,14 @@ def local_ba(field: sr.Field, opt: torch.optim.Adam, kf_rays: torch.Tensor,
         trans = pose_p[1].detach().requires_grad_(True)
         if devices is not None:
             ret = _sharded_ba_losses(field, qt_to_matrix(rot, trans), rays,
-                                     src, fcfg, consts, generator, devices)
+                                     src, fcfg, consts, u, devices)
         else:
             T = pose_rows(qt_to_matrix(rot, trans), src)          # [N, 4, 4]
             rays_dT = torch.einsum("nj,nij->in", rays[:, :3], T[:, :3, :3])
             rays_oT = T[:, :3, 3].T
             ret = sr.forward_losses_T(field.params(), rays_oT, rays_dT,
                                       rays[:, 3:6].T, rays[:, 6:7], fcfg,
-                                      consts, generator=generator)
+                                      consts, u=u)
         loss = sr.total_loss(ret, lw)
         opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -250,7 +350,7 @@ def local_ba(field: sr.Field, opt: torch.optim.Adam, kf_rays: torch.Tensor,
 def _sharded_ba_losses(field: sr.Field, poses: torch.Tensor,
                        rays: torch.Tensor, src: torch.Tensor,
                        fcfg: sr.FieldConfig, consts: sr.FieldConsts,
-                       generator, devices):
+                       u, devices):
     """One BA iteration's losses with the rays [N, 7] and their source
     slots split over ``devices``: each shard takes its pose rows from its
     replica of the poses [K + 1, 4, 4] and renders against its replica of
@@ -264,7 +364,7 @@ def _sharded_ba_losses(field: sr.Field, poses: torch.Tensor,
     return sr.forward_losses_T_sharded(
         replicate_params(field.params(), devices), rays_oT, rays_dT,
         [r[:, 3:6].T for r in rays_s], [r[:, 6:7] for r in rays_s], fcfg,
-        replicate_params(consts, devices), generator=generator)
+        replicate_params(consts, devices), u=u)
 
 
 def switch_ba(params, kf_rays: torch.Tensor, kf_mask: torch.Tensor,

@@ -49,6 +49,14 @@ With a one-device mesh nothing of that runs.
 Randomness: one ``torch.Generator`` per stage, reseeded from (config seed,
 stage, frame index or call count, and a sharded refine's slot) at each
 use, so a run is reproducible on one device.
+
+The hot stages run as programs (``slam/programs.py``, ``self.programs``):
+local BA, background refinement, the first fits (the first frame's and a
+new submap's, chunk by chunk) and tracking with the drift gate off. On
+the card each is a CUDA graph captured on its first call at a key and
+replayed after; on the CPU the same objects run the stage eagerly. The
+drift-gated track and the paths over a mesh of several devices call the
+stage functions directly.
 """
 
 from __future__ import annotations
@@ -75,6 +83,7 @@ from . import icp as icp_mod
 from . import manager as manager_mod
 from . import mapper, pose_graph, tracker
 from . import state as slam_state
+from .programs import StagePrograms
 from .state import SlamState
 
 _STAGE_SEED = {"track": 1, "ba": 2, "init": 3, "refine": 4, "switch": 5,
@@ -457,6 +466,9 @@ class MIPSFusionTorch:
         self.active_id = 0
         self.map_opt = mapper.make_map_optimizer(self.fields[0], self.mcfg)
         self.pst = tracker.make_pst(g, self.rcfg, self.device)
+        # the stage programs, by key (JAX: _get_ba_step, _get_refine_step
+        # and the jit caches of track_frame and init_submap_fit)
+        self.programs = StagePrograms(self.device)
 
         self.use_manager = bool(config.get("use_manager", True))
         self.manager = manager_mod.Manager(
@@ -690,38 +702,67 @@ class MIPSFusionTorch:
         st.localMLP_info[0] = torch.cat(
             [torch.ones(1, device=self.device), center, length])
         st.keyframe_localMLP[0, 0] = 0
-        mapper.init_submap_fit(
-            self.fields[0], self.map_opt, packed.reshape(-1, 7), self.fcfg,
-            self.consts, self.mcfg, self.lw, n_iters,
-            self._round_rays(self.mcfg.sample), self._generator("init", 0),
-            mesh=self._ray_mesh)
+        self._fit(self.fields[0], packed.reshape(-1, 7), n_iters,
+                  self._generator("init", 0))
         slam_state.add_keyframe(st, packed, 0, self.kf_rows, self.kf_cols)
         self._mirror_kf_rays(slice(0, 1))
         self._gate_anchor_update(packed, 0)
 
-    def track(self, packed: torch.Tensor, i: int):
+    def _fit(self, field: sr.Field, rays: torch.Tensor, n_iters: int,
+             generator: torch.Generator):
+        """A first fit of n_iters iterations on the active map optimizer:
+        the fit programs, chunk by chunk, or over a mesh the function."""
+        args = (field, self.map_opt, rays, self.fcfg, self.consts,
+                self.mcfg, self.lw, n_iters,
+                self._round_rays(self.mcfg.sample), generator)
+        if self._ray_mesh is not None:
+            return mapper.init_submap_fit(*args, mesh=self._ray_mesh)
+        return self.programs.init_submap_fit(*args, chunk=self.init_chunk)
+
+    def _local_ba(self, field: sr.Field, opt: mapper.MapAdam, args: Tuple,
+                  generator: torch.Generator, **kw) -> mapper.BAResult:
+        """Local BA (``mapper.local_ba``'s arguments after field and
+        optimizer: ``args``, then the generator and flags): its program,
+        or over a mesh the function."""
+        if self._ray_mesh is not None:
+            return mapper.local_ba(field, opt, *args, generator,
+                                   mesh=self._ray_mesh, **kw)
+        return self.programs.local_ba(field, opt, *args, generator, **kw)
+
+    def _track_args(self, packed: torch.Tensor, i: int) -> Tuple[Tuple,
+                                                                 Dict]:
+        """``tracker.track_frame_update``'s arguments at frame i (the
+        generator a fresh one), and its keywords: the levers' inputs,
+        only where a lever is on (the mesh where the ray batches split
+        over one)."""
         # constant-velocity prediction from the second frame after a
         # switch on (a switch re-expresses poses in another local frame)
         use_cs = bool(self.config["tracking"]["const_speed"]
                       and (i - self.state.last_switch_frame) >= 2)
-        # the levers' inputs, only where a lever is on (the mesh where
-        # the ray batches split over one)
-        gate_on = self.dgcfg is not None
         levers = {}
         if self._ray_mesh is not None:
             levers["mesh"] = self._ray_mesh
         if self.rcfg.escalate > 0.0:
             levers["prev_loss"] = self._prev_loss
-        if gate_on:
+        if self.dgcfg is not None:
             levers.update(dgcfg=self.dgcfg, gate=self._gate,
                           prev_rescued=self._prev_rescued,
                           polish_generator=self._generator("polish", i))
-        res = tracker.track_frame_update(
-            self.field.params(detach=True), self.fcfg_track, self.consts,
-            self.rcfg, self.gcfg, self.pst, self._generator("track", i),
-            packed, self.state, i, use_cs, self.lw, self.rcfg.n_iters,
-            self.gcfg.n_iters, self.keyframe_every, self._loss_ewma,
-            **levers)
+        return ((self.field.params(detach=True), self.fcfg_track,
+                 self.consts, self.rcfg, self.gcfg, self.pst,
+                 self._generator("track", i), packed, self.state, i, use_cs,
+                 self.lw, self.rcfg.n_iters, self.gcfg.n_iters,
+                 self.keyframe_every, self._loss_ewma), levers)
+
+    def track(self, packed: torch.Tensor, i: int):
+        args, levers = self._track_args(packed, i)
+        gate_on = self.dgcfg is not None
+        if gate_on or self._ray_mesh is not None:
+            # the drift gate reads the host once a frame; the sharded
+            # path splits over a mesh: both run the function
+            res = tracker.track_frame_update(*args, **levers)
+        else:
+            res = self.programs.track_frame_update(*args, **levers)
         self._loss_ewma = res.loss_ewma
         self._prev_loss = res.loss
         # overwritten on every frame, as the JAX system does (ADVICE.md)
@@ -730,23 +771,30 @@ class MIPSFusionTorch:
             self._gate = res.gate
         self.track_log.append(res._replace(gate=None))
 
+    def _ba_args(self, packed: torch.Tensor, i: int) -> Tuple:
+        """``mapper.local_ba``'s arguments between the optimizer and the
+        generator for local BA on the active submap at frame i."""
+        st = self.state
+        kf_mask = slam_state.submap_kf_mask(st, st.active_submap_id)
+        K = kf_mask.shape[0]
+        last_kf = torch.where(kf_mask, torch.arange(K, device=self.device),
+                              -1).max()
+        return (st.kf_rays, kf_mask, st.active_first_kf, last_kf,
+                extract_submap_kf_poses(st, st.active_submap_id,
+                                        self.kf_frames),
+                packed.reshape(-1, 7), st.est_c2w[i], self.fcfg, self.consts,
+                self.mcfg, self.lw,
+                self._round_rays(self.mcfg.sample + self.mcfg.pixels_cur))
+
     def do_local_ba(self, packed: torch.Tensor, i: int):
         """Local BA on the active submap and the pose write-back."""
         st = self.state
         active = st.active_submap_id
-        kf_mask = slam_state.submap_kf_mask(st, active)
-        K = kf_mask.shape[0]
-        last_kf = torch.where(kf_mask, torch.arange(K, device=self.device),
-                              -1).max()
-        res = mapper.local_ba(
-            self.field, self.map_opt, st.kf_rays, kf_mask,
-            st.active_first_kf, last_kf,
-            extract_submap_kf_poses(st, active, self.kf_frames),
-            packed.reshape(-1, 7), st.est_c2w[i], self.fcfg, self.consts,
-            self.mcfg, self.lw,
-            self._round_rays(self.mcfg.sample + self.mcfg.pixels_cur),
-            self._generator("ba", i), optim_cur=self.optim_cur,
-            mesh=self._ray_mesh)
+        args = self._ba_args(packed, i)
+        kf_mask = args[1]
+        res = self._local_ba(self.field, self.map_opt, args,
+                             self._generator("ba", i),
+                             optim_cur=self.optim_cur)
         writeback_ba_poses(st, active, kf_mask,
                            qt_to_matrix(res.kf_quat, res.kf_trans),
                            self.kf_frames)
@@ -810,23 +858,15 @@ class MIPSFusionTorch:
             self._drain_init_chunk()
         else:
             self._n_init_chunks += 1
-            mapper.init_submap_fit(
-                self.fields[new_id], self.map_opt, rays, self.fcfg,
-                self.consts, self.mcfg, self.lw, total,
-                self._round_rays(self.mcfg.sample),
-                self._generator("init", self._n_init_chunks),
-                mesh=self._ray_mesh)
+            self._fit(self.fields[new_id], rays, total,
+                      self._generator("init", self._n_init_chunks))
 
     def _drain_init_chunk(self):
         """One chunk of init_chunk iterations of the deferred first fit
         (the last one overshoots first_iters by less than a chunk)."""
         self._n_init_chunks += 1
-        mapper.init_submap_fit(
-            self.field, self.map_opt, self._pending_init_rays, self.fcfg,
-            self.consts, self.mcfg, self.lw, self.init_chunk,
-            self._round_rays(self.mcfg.sample),
-            self._generator("init", self._n_init_chunks),
-            mesh=self._ray_mesh)
+        self._fit(self.field, self._pending_init_rays, self.init_chunk,
+                  self._generator("init", self._n_init_chunks))
         self._pending_init_iters -= self.init_chunk
         if self._pending_init_iters <= 0:
             self._pending_init_iters = 0
@@ -981,22 +1021,30 @@ class MIPSFusionTorch:
         if mask_np.any():
             self._timed("refine", self._refine_round, m, mask_np, i)
 
-    def _refine_round(self, m: int, mask_np: np.ndarray, i: int):
+    def _refine_args(self, m: int, mask_np: np.ndarray) -> Tuple:
+        """``mapper.local_ba``'s arguments between the optimizer and the
+        generator for a refine round on submap m over the keyframes of
+        mask_np."""
         st = self.state
         kf_mask = torch.as_tensor(mask_np, device=self.device)
         K = kf_mask.shape[0]
         last_kf = torch.where(kf_mask, torch.arange(K, device=self.device),
                               -1).max()
+        return (st.kf_rays, kf_mask, st.localMLP_first_kf[m], last_kf,
+                extract_submap_kf_poses(st, m, self.kf_frames),
+                torch.zeros((8, 7), device=self.device),
+                torch.eye(4, device=self.device), self.fcfg, self.consts,
+                self.mcfg, self.lw, self._round_rays(self.mcfg.sample))
+
+    def _refine_round(self, m: int, mask_np: np.ndarray, i: int):
+        st = self.state
+        args = self._refine_args(m, mask_np)
+        kf_mask = args[1]
         field = self.fields[m]
-        res = mapper.local_ba(
-            field, mapper.make_map_optimizer(field, self.mcfg), st.kf_rays,
-            kf_mask, st.localMLP_first_kf[m], last_kf,
-            extract_submap_kf_poses(st, m, self.kf_frames),
-            torch.zeros((8, 7), device=self.device),
-            torch.eye(4, device=self.device), self.fcfg, self.consts,
-            self.mcfg, self.lw, self._round_rays(self.mcfg.sample),
-            self._generator("refine", i), include_current=False,
-            mesh=self._ray_mesh)
+        res = self._local_ba(field, mapper.make_map_optimizer(field,
+                                                              self.mcfg),
+                             args, self._generator("refine", i),
+                             include_current=False)
         writeback_ba_poses(st, m, kf_mask,
                            qt_to_matrix(res.kf_quat, res.kf_trans),
                            self.kf_frames)

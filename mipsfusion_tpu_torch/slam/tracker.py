@@ -16,6 +16,11 @@ whether the anchor is due for a refresh, and runs the rescue or builds the
 anchor only then (JAX: ``lax.cond``); after a rescue the refresh is a
 ``torch.where``. Over a mesh of several devices, RO's queries and GO's
 rays split where their sizes divide by the mesh's (``mesh=``).
+
+``track_pose`` is the frame's tracking without the drift gate, a function
+of the previous two poses that reads no host value: the body of the track
+program (``slam/programs.py``), which makes its draws beforehand
+(``track_draws``) and commits the pose after (``commit_pose``).
 """
 
 from __future__ import annotations
@@ -275,8 +280,7 @@ def ro_optimize(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
     search_size = torch.full((1, 6), rcfg.initial_scaling_factor, device=dev)
     if ss_scale is not None:
         search_size = search_size * ss_scale
-    identity7 = torch.zeros(7, device=dev)
-    identity7[0] = 1.0
+    identity7 = torch.eye(1, 7, device=dev)[0]
     P = pst.shape[0]
     screen = 0 < rcfg.screen_keep < P and rcfg.screen_px > 0
 
@@ -306,7 +310,9 @@ def ro_optimize(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
         if screen:
             sub = _linspace_idx(0, ptsT.shape[1] - 1, rcfg.screen_px, dev)
             fit_a, _ = fitness(abs_rot, abs_trans, ptsT[:, sub], valid[sub])
-            fit_a[0] = -float("inf")          # the identity always survives
+            # the identity always survives
+            fit_a = torch.cat([torch.full((1,), -float("inf"), device=dev),
+                               fit_a[1:]])
             # the screen_keep lowest; a stable sort breaks ties by index,
             # as lax.top_k does
             keep = torch.sort(fit_a, stable=True).indices[:rcfg.screen_keep]
@@ -351,7 +357,8 @@ def go_optimize(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
                 initial_pose: torch.Tensor, n_iters: int, lw: sr.LossWeights,
                 generator: Optional[torch.Generator] = None,
                 prior_pose: Optional[torch.Tensor] = None,
-                mesh: Optional[Mesh] = None):
+                mesh: Optional[Mesh] = None,
+                us: Optional[Sequence[torch.Tensor]] = None):
     """Adam on (quaternion, translation) against the rendering losses of
     fixed rays; returns (pose [4, 4], best loss). The loss before each
     update competes for the best pose; after ``wait_iters`` non-improving
@@ -361,7 +368,9 @@ def go_optimize(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
     the loss adds w (|t - t_prior|^2 + 1 - (q . q_prior)^2), anchored to
     ``prior_pose`` (default: the initial pose). With a ``mesh`` of several
     devices and a ray count that divides by its size, the rays and targets
-    split over it and the field and pose are replicated."""
+    split over it and the field and pose are replicated. ``us``: each
+    iteration's z perturbation (else drawn from ``generator`` where
+    ``fcfg.perturb``)."""
     dev = rays_d_cam.device
     p = [matrix_to_quaternion(initial_pose[:3, :3]), initial_pose[:3, 3]]
     opt = MaskedAdam(p, [gcfg.lr_rot, gcfg.lr_trans])
@@ -384,6 +393,8 @@ def go_optimize(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
         q_prior = matrix_to_quaternion(prior[:3, :3])
         t_prior = prior[:3, 3]
     for i in range(n_iters):
+        u = (us[i] if us is not None
+             else sr.draw_u(rays_d_cam.shape[0], fcfg, generator, dev))
         rot = p[0].detach().requires_grad_(True)
         trans = p[1].detach().requires_grad_(True)
         T = qt_to_matrix(rot, trans)
@@ -393,13 +404,13 @@ def go_optimize(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
             ret = sr.forward_losses_T_sharded(
                 reps, [Tk[:3, 3][:, None].expand_as(d)
                        for Tk, d in zip(Ts, dT)], dT, rgb_s, depth_s, fcfg,
-                consts_reps, emd_w=0.0, generator=generator)
+                consts_reps, emd_w=0.0, u=u)
         else:
             rays_dT = T[:3, :3] @ rays_d_camT
             rays_oT = T[:3, 3][:, None].expand_as(rays_dT)
             ret = sr.forward_losses_T(params, rays_oT, rays_dT, target_rgbT,
                                       target_d, fcfg, consts, emd_w=0.0,
-                                      generator=generator)
+                                      u=u)
         loss = sr.total_loss(ret, lw)
         if gcfg.motion_prior_w > 0.0:
             # metres^2 in translation; the sign-free quaternion term is
@@ -424,15 +435,23 @@ def go_optimize(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
     return qt_to_matrix(final[0], final[1]), best_loss
 
 
-def sample_pixels_mix(generator: Optional[torch.Generator], H: int, W: int,
-                      n_rows: int, n_cols: int, depth_img: torch.Tensor,
-                      n_total: int, edge_h: int = 0, edge_w: int = 0):
-    """Uniform grid of n_rows x n_cols pixels plus valid-biased random
-    pixels up to n_total, excluding an image border."""
-    dev = depth_img.device
+def _mix_frame(H: int, W: int, edge_h: int, edge_w: int):
+    """The border ``sample_pixels_mix`` leaves out, clamped so at least
+    8 rows and columns stay: (edge_h, edge_w, inner rows, inner cols)."""
     edge_h = min(edge_h, max((H - 8) // 2, 0))
     edge_w = min(edge_w, max((W - 8) // 2, 0))
-    Hi, Wi = H - 2 * edge_h, W - 2 * edge_w
+    return edge_h, edge_w, H - 2 * edge_h, W - 2 * edge_w
+
+
+def sample_pixels_mix(generator: Optional[torch.Generator], H: int, W: int,
+                      n_rows: int, n_cols: int, depth_img: torch.Tensor,
+                      n_total: int, edge_h: int = 0, edge_w: int = 0,
+                      noise: Optional[torch.Tensor] = None):
+    """Uniform grid of n_rows x n_cols pixels plus valid-biased random
+    pixels up to n_total, excluding an image border. ``noise``: the
+    uniform score of each inner pixel (else drawn from ``generator``)."""
+    dev = depth_img.device
+    edge_h, edge_w, Hi, Wi = _mix_frame(H, W, edge_h, edge_w)
     rows = edge_h + _linspace_idx(0, Hi - 1, n_rows, dev)
     cols = edge_w + _linspace_idx(0, Wi - 1, n_cols, dev)
     rr, cc = torch.meshgrid(rows, cols, indexing="ij")
@@ -442,10 +461,35 @@ def sample_pixels_mix(generator: Optional[torch.Generator], H: int, W: int,
         return rr[:n_total], cc[:n_total]
     interior = depth_img[edge_h:H - edge_h, edge_w:W - edge_w]
     valid = (interior > 0.0).to(torch.float32).reshape(-1)
-    score = valid + torch.rand(valid.shape, generator=generator, device=dev)
+    if noise is None:
+        noise = torch.rand(valid.shape, generator=generator, device=dev)
+    score = valid + noise
     idx = torch.topk(score, n_rand).indices
     return (torch.cat([rr, edge_h + idx // Wi]),
             torch.cat([cc, edge_w + idx % Wi]))
+
+
+class TrackDraws(NamedTuple):
+    """What tracking draws from its generator, in its order: the score
+    noise of ``sample_pixels_mix`` (None when the grid fills the budget),
+    then GO's z perturbation per iteration (None entries with perturbation
+    off)."""
+    pixels: Optional[torch.Tensor]
+    go: List[Optional[torch.Tensor]]
+
+
+def track_draws(generator: Optional[torch.Generator], H: int, W: int,
+                rcfg: ROConfig, gcfg: GOConfig, fcfg: sr.FieldConfig,
+                n_iter_go: int, device) -> TrackDraws:
+    """The draws ``track_frame`` makes on a frame of H x W (RO draws
+    nothing)."""
+    _, _, Hi, Wi = _mix_frame(H, W, gcfg.ignore_edge_h, gcfg.ignore_edge_w)
+    pixels = None
+    if gcfg.n_rays > rcfg.n_rows * rcfg.n_cols:
+        pixels = torch.rand((Hi * Wi,), generator=generator, device=device)
+    return TrackDraws(pixels, [sr.draw_u(gcfg.n_rays, fcfg, generator,
+                                         device)
+                               for _ in range(n_iter_go)])
 
 
 class TrackResult(NamedTuple):
@@ -490,32 +534,25 @@ def _anchor_due(dgcfg: DriftGateConfig, gate: GateAnchor, frame_idx: int,
     return due & ((~armed) | (drift_res <= health))
 
 
-def track_frame(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
-                rcfg: ROConfig, gcfg: GOConfig, pst: torch.Tensor,
-                generator: Optional[torch.Generator], rgb_img: torch.Tensor,
-                depth_img: torch.Tensor, rays_dir_img: torch.Tensor,
-                est_c2w: torch.Tensor, frame_idx: int, use_const_speed: bool,
-                lw: sr.LossWeights, n_iter_ro: int, n_iter_go: int,
-                loss_ewma: torch.Tensor,
-                prev_loss: Optional[torch.Tensor] = None,
-                dgcfg: Optional[DriftGateConfig] = None,
-                gate: Optional[GateAnchor] = None,
-                prev_rescued: Optional[torch.Tensor] = None,
-                polish_generator: Optional[torch.Generator] = None,
-                mesh: Optional[Mesh] = None) -> TrackResult:
-    """Motion model -> RO -> GO -> pose gate -> drift gate for frame
-    ``frame_idx``. ``prev_loss``: the previous frame's loss (RO's
-    escalation signal); ``prev_rescued``: the drift gate rescued the
-    previous frame, whose correction jump the constant-velocity model must
-    not extrapolate; ``polish_generator``: the rescue's GO polish draws
-    (the tracking generator's stream stays as it is with the gate off);
-    ``mesh``: RO's queries, GO and the polish GO split over it where their
-    sizes divide (JAX: ``ray_sharding``)."""
+def track_pose(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
+               rcfg: ROConfig, gcfg: GOConfig, pst: torch.Tensor,
+               generator: Optional[torch.Generator], rgb_img: torch.Tensor,
+               depth_img: torch.Tensor, rays_dir_img: torch.Tensor,
+               prev_pose: torch.Tensor, prev_prev: torch.Tensor,
+               use_const_speed: bool, lw: sr.LossWeights, n_iter_ro: int,
+               n_iter_go: int, loss_ewma: torch.Tensor,
+               prev_loss: Optional[torch.Tensor] = None,
+               prev_rescued: Optional[torch.Tensor] = None,
+               mesh: Optional[Mesh] = None,
+               draws: Optional[TrackDraws] = None):
+    """Motion model (from the previous two poses) -> RO -> GO -> pose
+    gate: ``track_frame`` without the drift gate, reading no host value.
+    Returns (the result, with the drift gate's fields false, and GO's
+    rays: directions, colours, depths). ``draws``: what it would draw
+    from ``generator`` (``track_draws``)."""
     H, W = depth_img.shape
     dev = depth_img.device
-    prev_pose = est_c2w[frame_idx - 1]
     if use_const_speed:
-        prev_prev = est_c2w[max(frame_idx - 2, 0)]
         pred = (prev_pose @ pose_inverse(prev_prev)) @ prev_pose
         if prev_rescued is not None:
             pred = torch.where(prev_rescued, prev_pose, pred)
@@ -542,13 +579,15 @@ def track_frame(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
     rr, cc = sample_pixels_mix(generator, H, W, rcfg.n_rows, rcfg.n_cols,
                                depth_img, gcfg.n_rays,
                                edge_h=gcfg.ignore_edge_h,
-                               edge_w=gcfg.ignore_edge_w)
+                               edge_w=gcfg.ignore_edge_w,
+                               noise=None if draws is None else draws.pixels)
     rays_d_cam = rays_dir_img[rr, cc]
     target_rgb = rgb_img[rr, cc]
     target_d = depth_img[rr, cc][:, None]
     pose, loss = go_optimize(params, fcfg, consts, gcfg, rays_d_cam,
                              target_rgb, target_d, pose, n_iter_go, lw,
-                             generator, prior_pose=pred, mesh=mesh)
+                             generator, prior_pose=pred, mesh=mesh,
+                             us=None if draws is None else draws.go)
 
     seeded = loss_ewma > 0.0
     if gcfg.gate_rel > 0.0:
@@ -564,10 +603,44 @@ def track_frame(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
         loss_ewma = torch.where(seeded, 0.9 * loss_ewma + 0.1 * loss, loss)
 
     false = torch.zeros((), dtype=torch.bool, device=dev)
+    return (TrackResult(pose, loss, loss_ewma, ok,
+                        torch.zeros((), device=dev), false, false, false,
+                        ss_scale),
+            (rays_d_cam, target_rgb, target_d))
+
+
+def track_frame(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
+                rcfg: ROConfig, gcfg: GOConfig, pst: torch.Tensor,
+                generator: Optional[torch.Generator], rgb_img: torch.Tensor,
+                depth_img: torch.Tensor, rays_dir_img: torch.Tensor,
+                est_c2w: torch.Tensor, frame_idx: int, use_const_speed: bool,
+                lw: sr.LossWeights, n_iter_ro: int, n_iter_go: int,
+                loss_ewma: torch.Tensor,
+                prev_loss: Optional[torch.Tensor] = None,
+                dgcfg: Optional[DriftGateConfig] = None,
+                gate: Optional[GateAnchor] = None,
+                prev_rescued: Optional[torch.Tensor] = None,
+                polish_generator: Optional[torch.Generator] = None,
+                mesh: Optional[Mesh] = None) -> TrackResult:
+    """Motion model -> RO -> GO -> pose gate (``track_pose``) -> drift
+    gate for frame ``frame_idx``. ``prev_loss``: the previous frame's loss
+    (RO's escalation signal); ``prev_rescued``: the drift gate rescued the
+    previous frame, whose correction jump the constant-velocity model must
+    not extrapolate; ``polish_generator``: the rescue's GO polish draws
+    (the tracking generator's stream stays as it is with the gate off);
+    ``mesh``: RO's queries, GO and the polish GO split over it where their
+    sizes divide (JAX: ``ray_sharding``)."""
+    H, W = depth_img.shape
+    dev = depth_img.device
+    res, (rays_d_cam, target_rgb, target_d) = track_pose(
+        params, fcfg, consts, rcfg, gcfg, pst, generator, rgb_img,
+        depth_img, rays_dir_img, est_c2w[frame_idx - 1],
+        est_c2w[max(frame_idx - 2, 0)], use_const_speed, lw, n_iter_ro,
+        n_iter_go, loss_ewma, prev_loss, prev_rescued, mesh)
     if not _gate_on(dgcfg, gate):
-        return TrackResult(pose, loss, loss_ewma, ok,
-                           torch.zeros((), device=dev), false, false, false,
-                           ss_scale)
+        return res
+    pose, loss, loss_ewma, ok = res[:4]
+    ss_scale, false = res.ss_scale, res.rescued
 
     sr_, sc_ = torch.meshgrid(_linspace_idx(0, H - 1, dgcfg.src_rows, dev),
                               _linspace_idx(0, W - 1, dgcfg.src_cols, dev),
@@ -628,6 +701,21 @@ def track_frame(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
                        rescued, ss_scale, gate, refresh)
 
 
+def commit_pose(state, frame_idx: int, pose: torch.Tensor,
+                keyframe_every: int) -> None:
+    """The pose-store bookkeeping of a tracked frame, in place: est_c2w,
+    then keyframe_ref on a keyframe, else the pose relative to the
+    frame's keyframe."""
+    kf_id = frame_idx // keyframe_every
+    kf_frame = kf_id * keyframe_every
+    state.est_c2w[frame_idx] = pose
+    if frame_idx % keyframe_every == 0:
+        state.keyframe_ref[kf_id] = state.active_first_kf
+    else:
+        state.est_c2w_rel[frame_idx] = (pose_inverse(state.est_c2w[kf_frame])
+                                        @ pose)
+
+
 def track_frame_update(params: Dict, fcfg: sr.FieldConfig,
                        consts: sr.FieldConsts, rcfg: ROConfig,
                        gcfg: GOConfig, pst: torch.Tensor,
@@ -653,14 +741,7 @@ def track_frame_update(params: Dict, fcfg: sr.FieldConfig,
                       prev_loss=prev_loss, dgcfg=dgcfg, gate=gate,
                       prev_rescued=prev_rescued,
                       polish_generator=polish_generator, mesh=mesh)
-    kf_id = frame_idx // keyframe_every
-    kf_frame = kf_id * keyframe_every
-    state.est_c2w[frame_idx] = res.pose
-    if frame_idx % keyframe_every == 0:
-        state.keyframe_ref[kf_id] = state.active_first_kf
-    else:
-        state.est_c2w_rel[frame_idx] = (pose_inverse(state.est_c2w[kf_frame])
-                                        @ res.pose)
+    commit_pose(state, frame_idx, res.pose, keyframe_every)
     if not _gate_on(dgcfg, gate) or res.refresh is False:
         return res
     pts, normals, valid = gate_anchor(packed_frame, dgcfg.anchor_rows,

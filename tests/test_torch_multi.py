@@ -241,7 +241,10 @@ def test_motion_model_restarts_after_switch(monkeypatch, i, last_switch):
         seen.append(args[10])          # (.., state, i, use_cs, ..)
         raise StopIteration
 
+    # the track program (the drift gate off) and the function take the
+    # same arguments
     monkeypatch.setattr(tracker, "track_frame_update", spy)
+    monkeypatch.setattr(slam.programs, "track_frame_update", spy)
     with pytest.raises(StopIteration):
         slam.track(ds.packed(i), i)
     assert seen == [bool(cfg["tracking"]["const_speed"]

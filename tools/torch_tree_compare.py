@@ -4,6 +4,8 @@ wrappers' host time a call.
 
     python3 tools/torch_tree_compare.py run <checkout> <out.npz>
     python3 tools/torch_tree_compare.py compare <a.npz> <b.npz>
+    python3 tools/torch_tree_compare.py stages <checkout> [--scale]
+        [--eager] [--torch-adam]
 
 ``run`` imports ``<checkout>/mipsfusion_tpu_torch`` (its own kernels, built
 at first use; it needs the card), makes the flagship field ([32, 64] x F4
@@ -19,9 +21,29 @@ allocations, the ctypes call, the launch); and the time of one K0 call
 launched on an idle device at 55,536 and 195,000 points (median of 50).
 ``compare`` prints, per kernel output and row, how many values differ and
 the largest difference in units in the last place.
+
+``stages`` runs ``<checkout>``'s SLAM loop on the card and prints one
+JSON line: the flagship outback at seed 0 (200 frames, the manager) as
+``MIPSFusionTorch.run`` runs it (tracked FPS, the device-stream ms a call
+of each stage, ``stage_ms()``, and their calls, ATE, switch frames,
+K1-K4's launches); then a second run of it whose frames 120-159 (a
+steady window: both submaps made, no switch) run under
+``torch.profiler``: the window's wall time between two synchronisations,
+the union of the device's kernel, copy and set intervals in it (busy),
+and the idle share 1 - busy / wall; with ``--scale`` also
+configs/synthetic/snake_fast.yaml as the smoke's phase 10 runs it (600
+frames: FPS, stage ms, ATE, submaps). Run it once per checkout, in turns
+(parent, change, change, parent), to compare two trees on one card.
+On a checkout with stage programs (``slam/programs.py``), ``--eager``
+runs the stages by their functions instead (the programs' oracle) and
+``--torch-adam`` gives the map ``torch.optim.Adam`` as the trees before
+the programs had it (its bias correction in float64 on the host): the
+two together attribute a change of the results to the programs or to
+the optimizer's step.
 """
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -150,6 +172,130 @@ def compare(a_path: str, b_path: str):
         print("; ".join(line))
 
 
+class _EagerStages:
+    """The stage programs' methods as the stage functions themselves."""
+
+    def __init__(self):
+        from mipsfusion_tpu_torch.slam import mapper, tracker
+        self.local_ba = mapper.local_ba
+        self.track_frame_update = tracker.track_frame_update
+        self._fit = mapper.init_submap_fit
+
+    def init_submap_fit(self, *args, chunk=0):
+        return self._fit(*args)
+
+
+def _torch_adam(field, mcfg):
+    import torch
+    return torch.optim.Adam([
+        {"params": list(field.decoder.parameters()), "lr": mcfg.lr_decoder,
+         "weight_decay": 1e-6, "eps": 1e-8},
+        {"params": field.embed_params(), "lr": mcfg.lr_embed,
+         "eps": 1e-15},
+    ], betas=(0.9, 0.99))
+
+
+def _system(cfg, ds, eager: bool, dev=None):
+    from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
+    slam = MIPSFusionTorch(cfg, dataset=ds, device=dev)
+    if eager:
+        slam.programs = _EagerStages()
+    return slam
+
+
+def _outback(eager: bool):
+    import torch
+    from mipsfusion_tpu_torch.config import flagship_outback
+    from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
+    cfg = flagship_outback(use_manager=True, seed=0)
+    cfg["data"]["output"] = None
+    dev = torch.device("cuda")
+    ds = SyntheticDataset(cfg, n_frames=200, trajectory="outback", span=1.0,
+                          device=dev)
+    return _system(cfg, ds, eager, dev), ds
+
+
+def _summary(slam, res) -> dict:
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    return {"fps": res["fps"],
+            "ate_m": res["absolute_translational_error.rmse"],
+            "n_submaps": res["n_submaps"],
+            "switches": [list(e) for e in slam.switch_events],
+            "stage_ms": slam.stage_ms(), "stage_calls": dict(slam.stage_calls),
+            "launches": fc.launch_counts()}
+
+
+def _idle_window(eager: bool, w0: int = 120, w1: int = 160) -> dict:
+    """Frames w0..w1-1 of the outback under torch.profiler (the frames
+    before them run first, unprofiled): wall, busy and idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    slam, ds = _outback(eager)
+    ds.prerender(range(w1))
+    for i in range(w0):
+        slam.process_frame(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(w0, w1):
+            slam.process_frame(i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy /= 1e3
+    return {"frames": [w0, w1], "wall_ms": wall, "busy_ms": busy,
+            "idle_share": 1.0 - busy / wall, "device_events": len(spans)}
+
+
+def stages(checkout: str, scale: bool = False, eager: bool = False,
+           torch_adam: bool = False):
+    sys.path.insert(0, os.path.abspath(checkout))
+    import torch
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    from mipsfusion_tpu_torch.slam import mapper
+    if os.path.dirname(fc.__file__) != os.path.join(
+            os.path.abspath(checkout), "mipsfusion_tpu_torch", "ops"):
+        raise SystemExit(f"imported {fc.__file__}, not {checkout}'s")
+    if torch_adam:
+        mapper.make_map_optimizer = _torch_adam
+    out = {"checkout": checkout, "device": torch.cuda.get_device_name(0),
+           "eager": eager, "torch_adam": torch_adam}
+    fc.reset_launch_counts()
+    slam, _ = _outback(eager)
+    t0 = time.time()
+    res = slam.run(verbose=False)
+    out["outback"] = _summary(slam, res)
+    out["outback"]["wall_s"] = time.time() - t0
+    del slam
+    out["idle"] = _idle_window(eager)
+    if scale:
+        from mipsfusion_tpu_torch.config import load_config
+        from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
+        cwd = os.getcwd()
+        os.chdir(os.path.abspath(checkout))
+        try:
+            cfg = load_config("configs/synthetic/snake_fast.yaml")
+        finally:
+            os.chdir(cwd)
+        cfg["data"]["output"] = None
+        fc.reset_launch_counts()
+        slam = _system(cfg, SyntheticDataset(cfg), eager)
+        out["scale"] = _summary(slam, slam.run(verbose=False))
+    print(json.dumps(out))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -159,9 +305,16 @@ def main(argv=None):
     c = sub.add_parser("compare")
     c.add_argument("a")
     c.add_argument("b")
+    st = sub.add_parser("stages")
+    st.add_argument("checkout")
+    st.add_argument("--scale", action="store_true")
+    st.add_argument("--eager", action="store_true")
+    st.add_argument("--torch-adam", action="store_true")
     args = ap.parse_args(argv)
     if args.cmd == "run":
         run(args.checkout, args.out)
+    elif args.cmd == "stages":
+        stages(args.checkout, args.scale, args.eager, args.torch_adam)
     else:
         compare(args.a, args.b)
     return 0
