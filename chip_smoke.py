@@ -149,18 +149,24 @@ Phases (any failure raises; the exit code is then non-zero):
                mesh at mesh.voxel_final scored against the analytic SDF
                (printed, not held).
  16. programs - the stage programs (slam/programs.py: local BA, refine,
-               track, the first fit's chunk as CUDA graphs, which phases
-               5-15 ran through, printing per run the graphs, calls,
-               replays, capture seconds and graph memory): on phase 5's
-               orbit and phase 6's outback at seed 0, after their runs,
-               each program's replay against the stage function called
-               eagerly on copies of the same inputs from identically
-               seeded generators, the same bits, three times; the stage
-               ms of both ways (device, between CUDA events, and host);
+               track, the first fit's chunk, PGO, switch BA, the
+               manager's predicates, verification + ICP, the gated
+               track's read, rescue and commit, as CUDA graphs, which
+               phases 5-13 and 15 ran through, printing per run the
+               graphs, calls, replays, capture seconds and graph
+               memory): on phase 5's orbit, phase 6's outback at seed 0
+               (with its loop-closure chain) and phase 11's stress run
+               (b) (the gated track quiet, due and fired), after their
+               runs, each program's replay against the stage function
+               called eagerly on copies of the same inputs from
+               identically seeded generators, the same bits, three
+               times; the stage ms of both ways (device, between CUDA
+               events, and host);
                the graphs, their capture seconds and memory, the peak
                memory; the copies that pass a submap's parameters and
                moments to the BA program against one graph per submap.
-The kernels' JSON line comes second to last; the last line is
+The smoke's wall seconds come before the programs' and the kernels' JSON
+lines; the kernels' comes second to last; the last line is
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --outback-seeds 0,1,2,0 [--outback-spawn 50]
@@ -192,7 +198,8 @@ runs phases 1-2 and then phase 15 alone.
 
     python3 chip_smoke.py --programs-only
 
-runs phases 1-2, the orbit and the outback at seed 0, and phase 16.
+runs phases 1-2, the orbit, the outback at seed 0, the stress run (b)
+and phase 16.
 
     python3 chip_smoke.py --sharded-only
 
@@ -1574,6 +1581,7 @@ def phase_stress():
     import torch
     _, off_counts, off_by_n = run_stress(False, "(a) levers off")
     b, on_counts, on_by_n = run_stress(True, "(b) levers on")
+    SYSTEMS["stress"] = (b, b.dataset)
     b2, _, _ = run_stress(True, "(b) again")
     same("stress (b) run twice", (b.state.est_c2w, b.state.est_c2w_rel),
          (b2.state.est_c2w, b2.state.est_c2w_rel))
@@ -2660,6 +2668,30 @@ def _moments(field, opt):
     return [torch.as_tensor(a) for a in ck.adam_to_leaves(opt, field)]
 
 
+def _state_copy(st):
+    """The state with copies of the tables a stage writes."""
+    import dataclasses
+    return dataclasses.replace(
+        st, kf_c2w=st.kf_c2w.clone(), est_c2w=st.est_c2w.clone(),
+        est_c2w_rel=st.est_c2w_rel.clone(),
+        keyframe_ref=st.keyframe_ref.clone())
+
+
+def _timed_call(ev, fn, *a, **kw):
+    """fn(*a, **kw) between two CUDA events, appended with the host
+    seconds (synchronised) to ``ev``."""
+    import torch
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    out = fn(*a, **kw)
+    e1.record()
+    torch.cuda.synchronize()
+    ev.append((e0, e1, time.perf_counter() - t0))
+    return out
+
+
 def stage_pairs(slam, ds, i: int):
     """Per programmed stage at frame i of a finished run, (its program's
     call, the stage function's call): each runs the stage on its own
@@ -2670,27 +2702,14 @@ def stage_pairs(slam, ds, i: int):
     committed poses). Refine takes the first inactive submap (the active
     one on a one-submap run) with a fresh optimizer; the fit one chunk of
     the first fit (``mapping.first_iters_chunk``) on the active field."""
-    import dataclasses
-    import torch
     from mipsfusion_tpu_torch.slam import mapper, tracker
     packed = ds.packed(i)
-
-    def timed(ev, fn, *a, **kw):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        e0.record()
-        out = fn(*a, **kw)
-        e1.record()
-        torch.cuda.synchronize()
-        ev.append((e0, e1, time.perf_counter() - t0))
-        return out
 
     def ba(run, m, args, stage, fresh, **kw):
         def call(ev):
             field, opt = _field_copy(slam, m, fresh)
-            res = timed(ev, run, field, opt, *args,
-                        slam._generator(stage, i), **kw)
+            res = _timed_call(ev, run, field, opt, *args,
+                              slam._generator(stage, i), **kw)
             return tuple(res), field.params(detach=True), _moments(field, opt)
         return call
 
@@ -2708,14 +2727,10 @@ def stage_pairs(slam, ds, i: int):
 
     def track(run):
         def call(ev):
-            st = slam.state
             a = list(targs)
             a[6] = slam._generator("track", i)
-            a[8] = dataclasses.replace(
-                st, est_c2w=st.est_c2w.clone(),
-                est_c2w_rel=st.est_c2w_rel.clone(),
-                keyframe_ref=st.keyframe_ref.clone())
-            res = timed(ev, run, *a, **levers)
+            a[8] = _state_copy(slam.state)
+            res = _timed_call(ev, run, *a, **levers)
             return ([getattr(res, k) for k in TRACK_FIELDS], a[8].est_c2w,
                     a[8].est_c2w_rel, a[8].keyframe_ref)
         return call
@@ -2728,10 +2743,10 @@ def stage_pairs(slam, ds, i: int):
     def fit(run, **kw):
         def call(ev):
             field, opt = _field_copy(slam, slam.active_id)
-            loss = timed(ev, run, field, opt, rays, slam.fcfg, slam.consts,
-                         slam.mcfg, slam.lw, chunk,
-                         slam._round_rays(slam.mcfg.sample),
-                         slam._generator("init", 10_000 + i), **kw)
+            loss = _timed_call(
+                ev, run, field, opt, rays, slam.fcfg, slam.consts, slam.mcfg,
+                slam.lw, chunk, slam._round_rays(slam.mcfg.sample),
+                slam._generator("init", 10_000 + i), **kw)
             return loss, field.params(detach=True), _moments(field, opt)
         return call
 
@@ -2751,6 +2766,167 @@ def stage_pairs(slam, ds, i: int):
                 fit(mapper.init_submap_fit))}
 
 
+def loop_pairs(slam, ds):
+    """The loop-closure programs after a run, as ``stage_pairs`` gives
+    the hot stages': PGO at the run's last switch back (its ids, its
+    pre-rectification and rectified poses), switch BA on that frame over
+    its verification's top keyframes, the manager's predicates at the
+    last keyframe, and a verification + ICP of the switch keyframe (the
+    switched-to submap from the one before). On a run with no switch
+    back, the last keyframe stands in for the switch, submap 0 for the
+    switched-to one (and its keyframes for the top ones)."""
+    import torch
+    from mipsfusion_tpu_torch.slam import manager, system
+    from mipsfusion_tpu_torch.slam import state as slam_state
+    st = slam.state
+    kfe = slam.keyframe_every
+    backs = [f for f, flag in slam.switch_events if flag == 1]
+    last_kf = (ds.num_frames - 1) // kfe * kfe
+    used = slam._host_used
+    if backs:
+        f = backs[-1]
+        aft, prev = (int(x) for x in slam._host_kf_bind[f // kfe])
+        temp, rect = slam.temp_local_pose, slam.rectified_local_pose
+        top = list(np.asarray(slam.manager.ovlp_data["top_kf_ids"]))
+    else:
+        f, aft, prev = last_kf, 0, slam.active_id
+        temp = st.est_c2w[f].clone()
+        rect = temp @ torch.linalg.matrix_exp(torch.tensor(
+            [[0.0, -0.01, 0.0, 0.02], [0.01, 0.0, 0.0, 0.0],
+             [0.0, 0.0, 0.0, -0.01], [0.0, 0.0, 0.0, 0.0]],
+            device=temp.device))
+        top = list(np.flatnonzero((slam._host_kf_bind == 0).any(1)
+                                  & (np.arange(len(slam._host_kf_bind))
+                                     < st.n_kf)))
+    packed = ds.packed(f)
+    mask = np.zeros(st.kf_rays.shape[0], bool)
+    mask[top] = True
+    progs = slam.programs
+
+    def pgo(run):
+        def call(ev):
+            s2 = _state_copy(st)
+            _timed_call(ev, run, s2, temp, rect, aft, prev, used,
+                        slam.key_edge_weight)
+            return s2.kf_c2w
+        return call
+
+    def switch_ba(run):
+        def call(ev):
+            s2 = _state_copy(st)
+            loss = _timed_call(
+                ev, run, s2, slam.fields[slam.active_id].params(detach=True),
+                torch.as_tensor(mask, device=slam.device),
+                packed.reshape(-1, 7), f, slam.kf_frames, slam.fcfg,
+                slam.consts, slam.lw, slam.sw_lr_rot, slam.sw_lr_trans,
+                slam.sw_map_num, slam.mcfg.sample, slam.mcfg.pose_accum_step,
+                slam._generator("switch", f))
+            return loss, s2.est_c2w
+        return call
+
+    mgr = slam.manager
+    kf_packed = ds.packed(last_kf)
+
+    def predicates(run):
+        def call(ev):
+            return _timed_call(
+                ev, run, st, st.est_c2w[last_kf], kf_packed[..., 6],
+                kf_packed[..., :3], max(mgr.localMLP_Id_wait, 0),
+                mgr.min_cr_len, mgr.cfg.near, mgr.cfg.far, mgr.cr_rows,
+                mgr.cr_cols)
+        return call
+
+    edge, min_count = slam._verify_statics()
+    rr_src, cc_src, sub_incl = slam._icp_subs
+    k = slam.near_kf_num
+    pose_world = system._anchor_of(st, prev) @ st.est_c2w[f]
+
+    def verify(run):
+        def call(ev):
+            return _timed_call(
+                ev, run, st, packed[..., 6], packed[..., :3],
+                slam_state.to_like(pose_world, st.kf_c2w), aft, prev,
+                *slam._ovlp_grid, slam._K_mat, slam.kf_frames, f, rr_src,
+                cc_src, sub_incl, slam.sw_align_threshold, slam.sw_min_trans,
+                min_count, k, edge, slam.H, slam.W,
+                max(1, slam.icp_dst_n // k), slam.sw_including_last, kfe,
+                slam.rays_per_kf, 15, system.SWITCH_ICP_DAMPING)
+        return call
+
+    print(f"programs loop stages at frame {f} (switch back "
+          f"{bool(backs)}): ids (switched-to {aft}, previous {prev}), "
+          f"used {used}, top keyframes {top}, manager at keyframe frame "
+          f"{last_kf}")
+    return {"pgo": (pgo(progs.global_pgo), pgo(system.global_pgo)),
+            "switch_ba": (switch_ba(progs.switch_ba_update),
+                          switch_ba(system.switch_ba_update)),
+            "manager": (predicates(progs.predicates_fused),
+                        predicates(manager.predicates_fused)),
+            "verify": (verify(progs.overlap_verify_icp),
+                       verify(system.overlap_verify_icp))}
+
+
+def gate_pairs(slam, ds, slip: float = 0.06):
+    """The drift-gated track on the run's last frame i, through its
+    programs and through ``tracker.track_frame_update``, in its three
+    forms: "track_gate" (quiet: the anchor from frame i itself, so only
+    the read runs and the commit is eager), "track_due" (the anchor from
+    frame i - 5 at its own pose, its refresh due: the read and the
+    commit's refresh form) and "track_fired" (that anchor's frame pose
+    moved by ``slip`` m along x in the state's copy, so ICP from the
+    tracked pose proposes about that correction: the read, the rescue,
+    the commit's rescue form). The system's drift gate config, or thresh
+    0.03 on a run without the gate; the quiet and due forms raise the
+    threshold to 1 m, so they cannot fire (re-tracked after the run,
+    frame i's pose need not be the one its anchor was taken at). Each
+    call returns the result's fields, the anchor after it, the host flag
+    and the committed pose store."""
+    import dataclasses
+    import torch
+    from mipsfusion_tpu_torch.slam import tracker
+    i = ds.num_frames - 1
+    packed = ds.packed(i)
+    dgcfg = slam.dgcfg or tracker.DriftGateConfig(thresh=0.03)
+    # the levers' inputs where the run has them on (the escalation's
+    # previous loss); the gate's are set here
+    targs, levers = slam._track_args(packed, i)
+
+    def anchor(frame):
+        pts, nrm, valid = tracker.gate_anchor(
+            ds.packed(frame), dgcfg.anchor_rows, dgcfg.anchor_cols)
+        return tracker.GateAnchor(pts, nrm, valid, torch.full(
+            (), frame, dtype=torch.int64, device=slam.device))
+
+    def track(run, a_frame, moved=False, cfg=dgcfg):
+        gate = anchor(a_frame)
+
+        def call(ev):
+            a = list(targs)
+            a[6] = slam._generator("track", i)
+            st = _state_copy(slam.state)
+            if moved:
+                st.est_c2w[a_frame, 0, 3] += slip
+            a[8] = st
+            res = _timed_call(ev, run, *a, **dict(
+                levers, dgcfg=cfg, gate=gate,
+                prev_rescued=torch.zeros((), dtype=torch.bool,
+                                         device=slam.device),
+                polish_generator=slam._generator("polish", i)))
+            return ([getattr(res, k) for k in TRACK_FIELDS],
+                    list(res.gate), [torch.tensor(res.refresh is True)],
+                    st.est_c2w, st.est_c2w_rel, st.keyframe_ref)
+        return call
+
+    calm = dataclasses.replace(dgcfg, thresh=1.0)
+    progs, fn = slam.programs.track_frame_update, tracker.track_frame_update
+    return {"track_gate": (track(progs, i, cfg=calm),
+                           track(fn, i, cfg=calm)),
+            "track_due": (track(progs, i - 5, cfg=calm),
+                          track(fn, i - 5, cfg=calm)),
+            "track_fired": (track(progs, i - 5, True),
+                            track(fn, i - 5, True))}
+
+
 def _bits_equal(a, b) -> bool:
     import torch
     if isinstance(a, dict):
@@ -2762,17 +2938,19 @@ def _bits_equal(a, b) -> bool:
     return a.dtype == b.dtype and bool(torch.equal(a, b))
 
 
-def program_checks(slam, ds, label: str, reps: int = 3) -> dict:
-    """Each programmed stage at the run's last frame: the program called
-    once (a replay, or the key's capture where the run never reached it),
-    then ``reps`` times against the stage function, each replay the
-    function's bits; per stage the mean device ms between CUDA events
-    and host ms (synchronised) of a call both ways. Returns them."""
-    i = ds.num_frames - 1
+def program_checks(slam, ds, label: str, pairs=None, reps: int = 3) -> dict:
+    """Each programmed stage (``pairs``: by default ``stage_pairs`` at the
+    run's last frame): the program called once (a replay, or the key's
+    capture where the run never reached it), then ``reps`` times against
+    the stage function, each replay the function's bits; per stage the
+    mean device ms between CUDA events and host ms (synchronised) of a
+    call both ways. Returns them."""
+    if pairs is None:
+        pairs = stage_pairs(slam, ds, ds.num_frames - 1)
     rows = {}
-    for stage, (prog, eager) in stage_pairs(slam, ds, i).items():
+    for stage, (prog, eager) in pairs.items():
         first = []
-        prog(first)
+        out = prog(first)
         ev_p, ev_e = [], []
         same_bits = True
         for _ in range(reps):
@@ -2783,6 +2961,15 @@ def program_checks(slam, ds, label: str, reps: int = 3) -> dict:
                                               for a, b, _ in ev]))
             row[f"{way}_host_ms"] = float(np.mean([h for _, _, h in ev])
                                           * 1e3)
+        if stage.startswith("track_"):
+            row.update(fired=bool(out[0][TRACK_FIELDS.index("fired")]),
+                       rescued=bool(out[0][TRACK_FIELDS.index("rescued")]),
+                       refresh_due=bool(out[2][0]))
+            want = {"track_gate": (False, False), "track_due": (False, True),
+                    "track_fired": (True, False)}[stage]
+            if (row["fired"], row["refresh_due"]) != want:
+                _fail(f"programs {label} {stage}: fired, refresh due "
+                      f"{row['fired'], row['refresh_due']}, want {want}")
         rows[stage] = row
         print(f"programs {label} {stage}: replay == eager bit for bit "
               f"{same_bits}  program {row['program_ms']:.3f} ms (host "
@@ -2812,8 +2999,9 @@ def template_copy_ms(slam, reps: int = 20) -> float:
 
 
 def _programs_runs():
-    """Phase 5's orbit (45 frames, one submap) and phase 6's outback at
-    seed 0 (200 frames, the manager), run here for --programs-only."""
+    """Phase 5's orbit (45 frames, one submap), phase 6's outback at seed
+    0 (200 frames, the manager) and phase 11's stress run (b) (every
+    lever on), run here for --programs-only."""
     import torch
     from mipsfusion_tpu_torch.config import flagship_orbit, flagship_outback
     from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
@@ -2837,23 +3025,34 @@ def _programs_runs():
         print(f"programs run {label} stage ms: " + json.dumps(
             {k: round(v, 3) for k, v in slam.stage_ms().items()}))
         SYSTEMS[label] = (slam, ds)
+    slam, _, _ = run_stress(True, "(b) levers on")
+    SYSTEMS["stress"] = (slam, slam.dataset)
 
 
 def phase_programs():
     """Phase 16: at each programmed stage's key on the flagship orbit and
     the outback (phase 5's and 6's systems, after their runs), the
     program's replay against the eager call on the same inputs and
-    draws, bit for bit; the stage ms of both ways; the graphs, their
-    capture seconds and memory, the run's peak memory; the cost of
-    passing the parameters as arguments (the copies a BA call makes)
-    against one graph per submap."""
+    draws, bit for bit: the hot stages on both (``stage_pairs``), the
+    loop-closure chain on the outback (``loop_pairs``: PGO, switch BA,
+    the manager, a verification), the drift-gated track's three forms on
+    the stress run (b) (``gate_pairs``); the stage ms of both ways; the
+    graphs, their capture seconds and memory, the run's peak memory; the
+    cost of passing the parameters as arguments (the copies a BA call
+    makes) against one graph per submap."""
     import torch
     if "orbit" not in SYSTEMS:
         _programs_runs()
     out = {}
+    slam, ds = SYSTEMS["stress"]
+    out["stress"] = program_checks(slam, ds, "stress", gate_pairs(slam, ds))
+    print("programs stress: " + json.dumps(slam.programs.stats()))
     for label in ("orbit", "outback"):
         slam, ds = SYSTEMS[label]
         out[label] = program_checks(slam, ds, label)
+        if label == "outback":
+            out["outback_loop"] = program_checks(slam, ds, label,
+                                                 loop_pairs(slam, ds))
         stats = slam.programs.stats()
         print(f"programs {label}: " + json.dumps(stats))
         graphs = sum(s["programs"] for s in stats.values())
@@ -2873,6 +3072,7 @@ def phase_programs():
 
 def main(argv=None):
     import argparse
+    t_start = time.time()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--outback-seeds", default=None,
                     help="comma-separated seeds, e.g. 0,1,2,0: build, then "
@@ -2904,7 +3104,7 @@ def main(argv=None):
     ap.add_argument("--programs-only", action="store_true",
                     help="phases 1-2, then only phase 16 (each stage "
                          "program's replay against the eager call on the "
-                         "orbit and the outback)")
+                         "orbit, the outback and the stress run (b))")
     ap.add_argument("--sharded-only", action="store_true",
                     help="phases 1-2, then only phase 14 (the orbit and the "
                          "outback on the sharded mesh, against their "
@@ -3042,6 +3242,7 @@ def main(argv=None):
             "plain_ms_by_shape": r["plain_ms"],
             "bound_ms_by_shape": r["bound_ms"],
             "bound_by_shape": r["bound_by"]})
+    print(f"smoke: {time.time() - t_start:.1f} s (limit 1200)")
     print(json.dumps({"programs": programs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

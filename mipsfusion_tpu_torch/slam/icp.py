@@ -1,12 +1,20 @@
 """Point-to-plane and point-to-point ICP (loop-closure pose rectification).
 
-Port of ``mipsfusion_tpu/slam/icp.py``: normals by k-nearest-neighbour PCA
-(one batched 3x3 ``eigh``), brute-force nearest neighbours over the full
-[N, M] distance matrix (the clouds are a few thousand subsampled keyframe
-points), and a fixed number of Gauss-Newton steps with masked
-correspondences, undamped and unweighted unless asked. The outputs
-mirror the open3d contract the reference consumes: the rigid transform
-and the count of inliers within the threshold.
+Port of ``mipsfusion_tpu/slam/icp.py``: normals by k-nearest-neighbour PCA,
+brute-force nearest neighbours over the full [N, M] distance matrix (the
+clouds are a few thousand subsampled keyframe points), and a fixed number
+of Gauss-Newton steps with masked correspondences, undamped and unweighted
+unless asked. The outputs mirror the open3d contract the reference
+consumes: the rigid transform and the count of inliers within the
+threshold.
+
+Point-to-plane ICP and the normals run inside captured stage programs
+(``slam/programs.py``), so neither reads the device from the host:
+``torch.linalg.eigh`` and ``torch.linalg.solve`` check their ``info`` on
+the host, so the normals come from ``eigh``'s cuSOLVER call made directly
+on the card (``ops/cusolver.syev_batched``) and the normal equations go
+through ``solve`` (``solve_ex`` without the check): the same bits as
+``eigh`` and ``solve``.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..ops import cusolver
 from ..ops.geometry import se3_exp
 
 
@@ -24,6 +33,23 @@ def _sq_dists(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return ((p[:, None, :] - q[None, :, :]) ** 2).sum(-1)
 
 
+def solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with A x = b for a square A, as ``torch.linalg.solve`` computes it
+    (the same factorization, the same bits) but without its host check of
+    the factorization's ``info``. A singular A gives non-finite values
+    instead of an error; the callers' damping keeps A positive definite."""
+    return torch.linalg.solve_ex(A, b, check_errors=False)[0]
+
+
+def _eigh_vectors(cov: torch.Tensor) -> torch.Tensor:
+    """Eigenvectors (columns, ascending eigenvalues) of a batch of
+    symmetric 3x3 matrices: ``torch.linalg.eigh``'s on the CPU, its cuSOLVER
+    call without the host read on the card (``ops/cusolver.py``)."""
+    if cov.is_cuda:
+        return cusolver.syev_batched(cov)[1]
+    return torch.linalg.eigh(cov).eigenvectors
+
+
 def estimate_normals(pts: torch.Tensor, k: int = 10) -> torch.Tensor:
     """Per-point normals [N, 3] (up to sign) via k-NN PCA of pts [N, 3]."""
     idx = torch.topk(_sq_dists(pts, pts), k, dim=-1, largest=False).indices
@@ -31,7 +57,7 @@ def estimate_normals(pts: torch.Tensor, k: int = 10) -> torch.Tensor:
     centered = nbrs - nbrs.mean(dim=1, keepdim=True)
     cov = torch.einsum("nki,nkj->nij", centered, centered)
     # the eigenvector of the smallest eigenvalue is the plane normal
-    return torch.linalg.eigh(cov).eigenvectors[:, :, 0]
+    return _eigh_vectors(cov)[:, :, 0]
 
 
 class ICPResult(NamedTuple):
@@ -91,7 +117,7 @@ def icp_point_to_plane(src: torch.Tensor, src_valid: torch.Tensor,
         Jw = J * w[:, None]
         H = Jw.T @ J
         H = H + (1e-6 + rel_damping * torch.trace(H) / 6.0) * eye6
-        xi = -torch.linalg.solve(H, Jw.T @ r)
+        xi = -solve(H, Jw.T @ r)
         T = se3_exp(xi) @ T
     return _inlier_stats(T, src, src_valid, dst, dst_valid, threshold)
 

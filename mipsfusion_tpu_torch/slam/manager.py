@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..ops.geometry import get_frame_surface_bbox, pts_in_bbox, rays_to_world
-from .state import SlamState, msg1_apply, msg2_apply, msg3_apply
+from .state import SlamState, msg1_apply, msg2_apply, msg3_apply, row
 
 
 @dataclasses.dataclass
@@ -199,7 +199,9 @@ def manager_predicates(localMLP_info, localMLP_max_len, anchor, pose_local,
     """Every per-keyframe decision quantity, on the device: the frustum
     box, cr_active, cr of the expanded active box (and that box), the
     most-overlapping submap among the 3 nearest used ones other than the
-    active one, its cr, and the cr of the wait-loop submap."""
+    active one, its cr, and the cr of the wait-loop submap. ``active_id``
+    and ``wait_id`` are host ints or device scalars (the JAX program
+    traces them): either way the ids are gathered on the device."""
     pose_world = anchor @ pose_local
     fr_center, fr_len = get_frame_surface_bbox(
         pose_world, depth_img, rays_d_img, near, far)
@@ -219,10 +221,10 @@ def manager_predicates(localMLP_info, localMLP_max_len, anchor, pose_local,
     dev = localMLP_info.device
     used = localMLP_info[:, 0] > 0
     centers, lengths = localMLP_info[:, 1:4], localMLP_info[:, 4:7]
-    cr_active = cr_of(centers[active_id], lengths[active_id], True)
-    new_c, new_l = expand_rule_t(centers[active_id], lengths[active_id],
-                                 fr_center, fr_len,
-                                 localMLP_max_len[active_id])
+    c_act, l_act = row(centers, active_id), row(lengths, active_id)
+    cr_active = cr_of(c_act, l_act, True)
+    new_c, new_l = expand_rule_t(c_act, l_act, fr_center, fr_len,
+                                 row(localMLP_max_len, active_id))
     cr_active_new = cr_of(new_c, new_l, False)
 
     dists = torch.linalg.norm(centers - fr_center, dim=-1)
@@ -237,11 +239,13 @@ def manager_predicates(localMLP_info, localMLP_max_len, anchor, pose_local,
     scores = (inside3 & valid[:, None]).sum(0)
     scores = torch.where(dists[top3] >= 1e9, torch.full_like(scores, -1),
                          scores)
-    mo_id = top3[torch.argmax(scores)]
-    cr_mo = cr_of(centers[mo_id], lengths[mo_id], True)
+    mo_id = row(top3, torch.argmax(scores))
+    cr_mo = cr_of(row(centers, mo_id), row(lengths, mo_id), True)
     mo_id = torch.where((~excl).sum() > 0, mo_id,
-                        torch.full_like(mo_id, active_id))
-    cr_wait = cr_of(centers[wait_id], lengths[wait_id], True)
+                        active_id.to(mo_id.dtype)
+                        if isinstance(active_id, torch.Tensor)
+                        else torch.full_like(mo_id, active_id))
+    cr_wait = cr_of(row(centers, wait_id), row(lengths, wait_id), True)
     return {"fr_center": fr_center, "fr_len": fr_len,
             "cr_active": cr_active, "cr_active_new": cr_active_new,
             "new_center": new_c, "new_len": new_l,
@@ -254,8 +258,10 @@ def predicates_fused(st: SlamState, pose_local, depth, rays_d, wait_id: int,
                      ) -> Dict[str, torch.Tensor]:
     """``manager_predicates`` with the active anchor gathered on the
     device; the submap tables ride along in the same host copy, so the
-    decision and its state update need no further readback."""
-    anchor = st.kf_c2w[st.localMLP_first_kf[st.active_submap_id]]
+    decision and its state update need no further readback (the JAX
+    package's ``_predicates_fused``). ``st.active_submap_id`` and
+    ``wait_id`` are host ints or device scalars."""
+    anchor = row(st.kf_c2w, row(st.localMLP_first_kf, st.active_submap_id))
     pred = manager_predicates(
         st.localMLP_info, st.localMLP_max_len, anchor, pose_local, depth,
         rays_d, st.active_submap_id, wait_id, min_cr_len, near, far, rows,
@@ -297,6 +303,9 @@ class Manager:
         self.last_binding: Optional[Tuple[int, Tuple[int, int]]] = None
         # overlap verification, installed by the system: returns (ok, data)
         self.find_overlap_fn = None
+        # the predicates (``predicates_fused``'s arguments and result); the
+        # system installs its program of them
+        self.predicates_fn = predicates_fused
 
     # -- helpers ----------------------------------------------------------
 
@@ -387,7 +396,7 @@ class Manager:
     def _predicates(self, st: SlamState, depth, rays_d, pose_local,
                     wait_id: int) -> Dict[str, np.ndarray]:
         """One device program and ONE host copy per keyframe."""
-        return host_dict(predicates_fused(
+        return host_dict(self.predicates_fn(
             st, pose_local, depth, rays_d, max(wait_id, 0), self.min_cr_len,
             self.cfg.near, self.cfg.far, self.cr_rows, self.cr_cols))
 

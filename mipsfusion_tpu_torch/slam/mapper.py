@@ -367,6 +367,16 @@ def _sharded_ba_losses(field: sr.Field, poses: torch.Tensor,
         replicate_params(consts, devices), u=u)
 
 
+def switch_ba_weights(kf_mask: torch.Tensor, n_total: int) -> torch.Tensor:
+    """Switch BA's source weights [K + 1]: uniform over the keyframes of
+    kf_mask, then the loop keyframe's quota max(1/n, 1/5) of n_total."""
+    n = torch.clamp(kf_mask.sum(), min=1).to(torch.float32)
+    w_kf = kf_mask.to(torch.float32)
+    w_kf = w_kf / torch.clamp(w_kf.sum(), min=1.0)
+    w_ovlp = torch.clamp(n_total / n, min=n_total / 5.0) / n_total
+    return torch.cat([w_kf, w_ovlp[None]])
+
+
 def switch_ba(params, kf_rays: torch.Tensor, kf_mask: torch.Tensor,
               kf_poses_local: torch.Tensor, ovlp_rays: torch.Tensor,
               ovlp_pose_local: torch.Tensor, fcfg: sr.FieldConfig,
@@ -374,7 +384,8 @@ def switch_ba(params, kf_rays: torch.Tensor, kf_mask: torch.Tensor,
               lr_trans: float, n_iters: int, n_total: int,
               pose_accum_step: int = 5,
               generator: Optional[torch.Generator] = None,
-              draws: Optional[Draws] = None):
+              draws: Optional[Draws] = None,
+              us: Optional[Sequence[torch.Tensor]] = None):
     """Refine ONLY the loop keyframe's pose against the switched-to
     submap, on a frozen field (``params`` detached; the map optimizer is
     never stepped), with a fresh pose Adam stepped every pose_accum_step
@@ -382,13 +393,12 @@ def switch_ba(params, kf_rays: torch.Tensor, kf_mask: torch.Tensor,
     keyframes in kf_mask (poses kf_poses_local, fixed) plus a quota of
     max(1/n, 1/5) of n_total from the loop keyframe's own rays ovlp_rays
     [P, 7]. ``draws``: per iteration (source slot, keyframe ray index,
-    loop-keyframe ray index). Returns (pose [4, 4], last loss)."""
+    loop-keyframe ray index); ``us``: per iteration the z perturbation
+    (else drawn from ``generator`` where ``fcfg.perturb``): ``ba_draws``
+    on ``switch_ba_weights`` draws both, in this function's order.
+    Returns (pose [4, 4], last loss)."""
     K, R, _ = kf_rays.shape
-    n = torch.clamp(kf_mask.sum(), min=1).to(torch.float32)
-    w_kf = kf_mask.to(torch.float32)
-    w_kf = w_kf / torch.clamp(w_kf.sum(), min=1.0)
-    w_ovlp = torch.clamp(n_total / n, min=n_total / 5.0) / n_total
-    w = torch.cat([w_kf, w_ovlp[None]])
+    w = switch_ba_weights(kf_mask, n_total)
     p = [matrix_to_quaternion(ovlp_pose_local[:3, :3]),
          ovlp_pose_local[:3, 3]]
     pose_opt = MaskedAdam(p, [lr_rot, lr_trans])
@@ -408,7 +418,8 @@ def switch_ba(params, kf_rays: torch.Tensor, kf_mask: torch.Tensor,
         rays_dT = torch.einsum("nj,nij->in", rays[:, :3], T[:, :3, :3])
         ret = sr.forward_losses_T(params, T[:, :3, 3].T, rays_dT,
                                   rays[:, 3:6].T, rays[:, 6:7], fcfg, consts,
-                                  generator=generator)
+                                  generator=generator,
+                                  u=None if us is None else us[i])
         loss = sr.total_loss(ret, lw)
         g = torch.autograd.grad(loss, [rot, trans])
         accum = [a + gg for a, gg in zip(accum, g)]

@@ -39,15 +39,22 @@ What a replay cannot see, it is given:
 
 The stages (``StagePrograms``): ``local_ba`` (local BA, and background
 refinement: a fresh optimizer, ``include_current=False``),
-``init_submap_fit`` (the first fits, one program a chunk of iterations)
-and ``track_frame_update`` (tracking with the drift gate off). The drift-
-gated track (one host read a frame), every path over a mesh of several
-devices, the manager, ICP, PGO, switch BA, the consistency BA and the
-mesher stay eager.
+``init_submap_fit`` (the first fits, one program a chunk of iterations),
+``track_frame_update`` (tracking; with the drift gate on, three programs
+around its one host read: the read, the rescue on a fired frame, the
+commit with the anchor's refresh), and the loop-closure chain:
+``global_pgo`` (PGO), ``switch_ba_update`` (switch BA),
+``predicates_fused`` (the manager's keyframe predicates) and
+``overlap_verify_icp`` (verification + ICP, run only when the manager
+asks). Their ids, counts and frame indices are device inputs (host ints
+copied into static buffers), so one program serves a run. What stays
+eager: every path over a mesh of several devices, the consistency BA, the
+mesher's volume and the switch-back bookkeeping.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import time
 from typing import Callable, Dict, Optional, Tuple
@@ -56,7 +63,8 @@ import torch
 
 from ..models import scene_rep as sr
 from ..ops import field_cuda as fc
-from . import mapper, tracker
+from . import manager, mapper, pose_graph, tracker
+from .state import SlamState, row
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -243,6 +251,28 @@ def _consts(s: Tensors) -> sr.FieldConsts:
     return sr.FieldConsts(s["bb_lo"], s["bb_inv_extent"])
 
 
+def _state_inputs(st: SlamState, names: Tuple[str, ...]) -> Tensors:
+    return {f"st/{n}": getattr(st, n) for n in names}
+
+
+def _state(s: Tensors, **registers) -> SlamState:
+    """A SlamState over a program's static buffers: the tables it was
+    given, the host registers it reads as device scalars (``registers``),
+    None for the rest."""
+    tables = {f.name: s.get(f"st/{f.name}")
+              for f in dataclasses.fields(SlamState)
+              if f.name not in ("n_kf", "active_submap_id",
+                                "prev_active_submap_id",
+                                "last_switch_frame")}
+    return SlamState(**tables, **registers)
+
+
+def _scalar(x, like: torch.Tensor) -> torch.Tensor:
+    """A host int as an int64 device scalar on like's device (a copy made
+    before the replay, into the program's static buffer)."""
+    return torch.as_tensor(x, dtype=torch.int64, device=like.device)
+
+
 class StagePrograms:
     """One system's stage programs on ``device``, by key; each stage
     method takes the stage function's arguments and gives its result."""
@@ -390,11 +420,22 @@ class StagePrograms:
                            use_const_speed: bool, lw: sr.LossWeights,
                            n_iter_ro: int, n_iter_go: int,
                            keyframe_every: int, loss_ewma: torch.Tensor,
-                           prev_loss: Optional[torch.Tensor] = None
+                           prev_loss: Optional[torch.Tensor] = None,
+                           dgcfg: Optional[tracker.DriftGateConfig] = None,
+                           gate: Optional[tracker.GateAnchor] = None,
+                           prev_rescued: Optional[torch.Tensor] = None,
+                           polish_generator: Optional[torch.Generator] = None
                            ) -> tracker.TrackResult:
-        """``tracker.track_frame_update`` with the drift gate off, as a
-        program of ``tracker.track_pose``; the pose is committed to
-        ``state`` after the replay (``tracker.commit_pose``)."""
+        """``tracker.track_frame_update``. With the drift gate off, a
+        program of ``tracker.track_pose``, the pose committed to ``state``
+        after the replay (``tracker.commit_pose``); with it on, three
+        (``_track_gated``)."""
+        if tracker._gate_on(dgcfg, gate):
+            return self._track_gated(
+                params, fcfg, consts, rcfg, gcfg, pst, generator,
+                packed_frame, state, frame_idx, use_const_speed, lw,
+                n_iter_ro, n_iter_go, keyframe_every, loss_ewma, prev_loss,
+                dgcfg, gate, prev_rescued, polish_generator)
         H, W = packed_frame.shape[:2]
         draws = tracker.track_draws(generator, H, W, rcfg, gcfg, fcfg,
                                     n_iter_go, packed_frame.device)
@@ -433,3 +474,302 @@ class StagePrograms:
         res = tracker.TrackResult(**out)
         tracker.commit_pose(state, frame_idx, res.pose, keyframe_every)
         return res
+
+    def _track_gated(self, params, fcfg, consts, rcfg, gcfg, pst, generator,
+                     packed_frame, state, frame_idx, use_const_speed, lw,
+                     n_iter_ro, n_iter_go, keyframe_every, loss_ewma,
+                     prev_loss, dgcfg, gate, prev_rescued, polish_generator
+                     ) -> tracker.TrackResult:
+        """The drift-gated track as three programs around its one host
+        read (JAX: ``lax.cond``): (A) ``track_pose`` and the gate's
+        reading (stage "track_gate"), then the 2-element copy of its
+        flags; (B) on a fired frame the rescue (stage "track_rescue"),
+        its polish draws made first; (C) where the gate fired or the
+        anchor is due, the commit and the anchor's refresh in that form
+        (stage "track_commit"); else the commit eagerly, as with the gate
+        off."""
+        H, W = packed_frame.shape[:2]
+        dev = packed_frame.device
+        draws = tracker.track_draws(generator, H, W, rcfg, gcfg, fcfg,
+                                    n_iter_go, dev)
+        frame = _scalar(frame_idx, packed_frame)
+        gate_in = {"gate/pts": gate.pts, "gate/normals": gate.normals,
+                   "gate/valid": gate.valid, "gate/kf_frame": gate.kf_frame}
+        common = {"packed": packed_frame, "est_c2w": state.est_c2w,
+                  **gate_in, **_consts_inputs(consts),
+                  **_flatten(params, "p/")}
+        inputs = {**common, "pst": pst, "frame": frame,
+                  "loss_ewma": loss_ewma}
+        if rcfg.escalate > 0.0 and prev_loss is not None:
+            inputs["prev_loss"] = prev_loss
+        if prev_rescued is not None:
+            inputs["prev_rescued"] = prev_rescued
+        if draws.pixels is not None:
+            inputs["pixels"] = draws.pixels
+        if fcfg.perturb and n_iter_go > 0:
+            inputs["go_u"] = torch.stack(draws.go)
+        key = ("track_gate", fcfg, rcfg, gcfg, dgcfg, lw, n_iter_ro,
+               n_iter_go, bool(use_const_speed), _shapes(inputs))
+
+        def gate_of(s):
+            return tracker.GateAnchor(s["gate/pts"], s["gate/normals"],
+                                      s["gate/valid"], s["gate/kf_frame"])
+
+        def read_body(prog):
+            def body(s: Tensors) -> Tensors:
+                packed, est, f = s["packed"], s["est_c2w"], s["frame"]
+                res, go_rays = tracker.track_pose(
+                    _unflatten(s, "p/"), fcfg, _consts(s), rcfg, gcfg,
+                    s["pst"], None, packed[..., 3:6], packed[..., 6],
+                    packed[..., :3], row(est, f - 1),
+                    row(est, torch.clamp(f - 2, min=0)), use_const_speed,
+                    lw, n_iter_ro, n_iter_go, s["loss_ewma"],
+                    prev_loss=s.get("prev_loss"),
+                    prev_rescued=s.get("prev_rescued"),
+                    draws=tracker.TrackDraws(
+                        s.get("pixels"),
+                        list(s["go_u"]) if "go_u" in s
+                        else [None] * n_iter_go))
+                reading = tracker.gate_read(res.pose, packed[..., 6],
+                                            packed[..., :3], est, f,
+                                            gate_of(s), dgcfg)
+                return {**{k: v for k, v in res._asdict().items()
+                           if v is not None},
+                        "go/dirs": go_rays[0], "go/rgb": go_rays[1],
+                        "go/depth": go_rays[2], **reading._asdict()}
+            return body
+
+        a = self._program(key, read_body)(inputs)
+        res = tracker.TrackResult(**{k: a[k] for k in (
+            "pose", "loss", "loss_ewma", "accepted", "drift_res", "armed",
+            "fired", "rescued", "ss_scale")})
+        reading = tracker.GateReading(a["slip"], a["pose_icp"], a["armed"],
+                                      a["flags"])
+        # the host's one read a frame
+        fire_h, refresh = reading.flags.tolist()
+        rescue = ()
+        if fire_h:
+            us = tracker.polish_draws(polish_generator, gcfg, fcfg, dgcfg,
+                                      n_iter_go, dev)
+            b_in = {**common, "pose": a["pose"], "slip": a["slip"],
+                    "pose_icp": a["pose_icp"], "go/dirs": a["go/dirs"],
+                    "go/rgb": a["go/rgb"], "go/depth": a["go/depth"]}
+            if us and us[0] is not None:
+                b_in["polish_u"] = torch.stack(us)
+            b_key = ("track_rescue", fcfg, gcfg, dgcfg, lw, n_iter_go,
+                     _shapes(b_in))
+
+            def rescue_body(prog):
+                def body(s: Tensors) -> Tensors:
+                    packed = s["packed"]
+                    pose, drift, rescued = tracker.gate_rescue(
+                        _unflatten(s, "p/"), fcfg, _consts(s), gcfg, dgcfg,
+                        s["pose"], tracker.GateReading(
+                            s["slip"], s["pose_icp"], None, None),
+                        packed[..., 6], packed[..., :3], s["est_c2w"],
+                        gate_of(s),
+                        (s["go/dirs"], s["go/rgb"], s["go/depth"]),
+                        n_iter_go, lw,
+                        us=(list(s["polish_u"]) if "polish_u" in s
+                            else [None] * n_iter_go))
+                    return {"pose": pose, "drift_res": drift,
+                            "rescued": rescued}
+                return body
+
+            b = self._program(b_key, rescue_body)(b_in)
+            rescue = (b["pose"], b["drift_res"], b["rescued"])
+        res = tracker.gate_result(res, reading, gate, refresh, *rescue)
+        if not (fire_h or refresh):
+            tracker.commit_pose(state, frame_idx, res.pose, keyframe_every)
+            return res
+        # (C): the commit and the anchor's refresh, in the form the read
+        # chose
+        c_in = {"pose": res.pose, "frame": frame, "packed": packed_frame,
+                "st/est_c2w": state.est_c2w,
+                "st/est_c2w_rel": state.est_c2w_rel,
+                "st/keyframe_ref": state.keyframe_ref,
+                "st/active_first_kf": state.active_first_kf, **gate_in}
+        if fire_h:
+            c_in["drift_res"] = res.drift_res
+        c_key = ("track_commit", dgcfg, keyframe_every, bool(fire_h),
+                 _shapes(c_in))
+
+        def commit_body(prog):
+            def body(s: Tensors) -> Tensors:
+                est, rel, ref = tracker.commit_pose_at(
+                    s["st/est_c2w"], s["st/est_c2w_rel"],
+                    s["st/keyframe_ref"], s["st/active_first_kf"],
+                    s["frame"], s["pose"], keyframe_every)
+                new = tracker.gate_refresh(gate_of(s), s["packed"],
+                                           s["frame"], dgcfg,
+                                           s.get("drift_res"))
+                return {"est_c2w": est, "est_c2w_rel": rel,
+                        "keyframe_ref": ref,
+                        **{f"gate/{k}": v for k, v in new._asdict().items()}}
+            return body
+
+        c = self._program(c_key, commit_body)(c_in)
+        with torch.no_grad():
+            torch._foreach_copy_(
+                [state.est_c2w, state.est_c2w_rel, state.keyframe_ref],
+                [c["est_c2w"], c["est_c2w_rel"], c["keyframe_ref"]])
+        return res._replace(gate=tracker.GateAnchor(
+            c["gate/pts"], c["gate/normals"], c["gate/valid"],
+            c["gate/kf_frame"]))
+
+    # ----------------------------------------------------- loop closure
+
+    def global_pgo(self, st: SlamState, local_prev: torch.Tensor,
+                   local_aft: torch.Tensor, aft_id: int, prev_id: int,
+                   used: int, key_w: float) -> None:
+        """``system.global_pgo`` as one program for every PGO of a run
+        (stage "pgo"; JAX: ``_global_pgo``): the ids, the used count and
+        the key edge's weight are device inputs, the pair list a constant
+        made once a key; the anchors are written to ``st`` after the
+        replay."""
+        from . import system
+        dev = st.kf_c2w.device
+        inputs = {"kf_c2w": st.kf_c2w, "first_kf": st.localMLP_first_kf,
+                  "adjacency": st.localMLP_adjacent,
+                  "local_prev": local_prev, "local_aft": local_aft,
+                  "key_edge": _scalar([aft_id, prev_id], st.kf_c2w),
+                  "used": _scalar(used, st.kf_c2w),
+                  "key_w": torch.as_tensor(key_w, dtype=torch.float32,
+                                           device=dev)}
+        key = ("pgo", _shapes(inputs))
+
+        def make_body(prog):
+            pairs = pose_graph.edge_pairs(st.localMLP_first_kf.shape[0], dev)
+
+            def body(s: Tensors) -> Tensors:
+                return {"kf_c2w": system.pgo_anchors(
+                    s["kf_c2w"], s["first_kf"], s["adjacency"],
+                    s["local_prev"], s["local_aft"], s["key_edge"],
+                    s["used"], s["key_w"], pairs=pairs)}
+            return body
+
+        out = self._program(key, make_body)(inputs)
+        with torch.no_grad():
+            st.kf_c2w.copy_(out["kf_c2w"])
+
+    def switch_ba_update(self, st: SlamState, params: Dict,
+                         kf_mask: torch.Tensor, frame_rays: torch.Tensor,
+                         i: int, kf_frames: torch.Tensor,
+                         fcfg: sr.FieldConfig, consts: sr.FieldConsts,
+                         lw: sr.LossWeights, lr_rot: float, lr_trans: float,
+                         n_iters: int, n_total: int, pose_accum_step: int,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+        """``system.switch_ba_update`` as a program (stage "switch_ba";
+        JAX: ``_switch_ba_fused``): the keyframe-pose extraction, the
+        pose-only BA on the frozen field (its parameters are inputs) and
+        the write of frame i's pose; the frame index and the active submap
+        are device inputs, the draws made before the replay. Returns the
+        last loss."""
+        from . import system
+        K, R, _ = st.kf_rays.shape
+        w = mapper.switch_ba_weights(kf_mask, n_total)
+        draws, us = mapper.ba_draws(w, n_iters, n_total,
+                                    (R, frame_rays.shape[0]), fcfg,
+                                    generator)
+        inputs = {**_state_inputs(st, _POSE_TABLES), "kf_mask": kf_mask,
+                  "rays": frame_rays, "frame": _scalar(i, kf_mask),
+                  "active": _scalar(st.active_submap_id, kf_mask),
+                  "kf_frames": kf_frames, **_consts_inputs(consts),
+                  **_flatten(params, "p/")}
+        for j, name in enumerate(("src", "ray_idx", "ovlp_idx")):
+            inputs[name] = torch.stack([d[j] for d in draws])
+        if fcfg.perturb:
+            inputs["u"] = torch.stack(us)
+        key = ("switch_ba", fcfg, lw, lr_rot, lr_trans, n_iters, n_total,
+               pose_accum_step, _shapes(inputs))
+
+        def make_body(prog):
+            def body(s: Tensors) -> Tensors:
+                est, loss = system.switch_ba_at(
+                    _state(s, active_submap_id=s["active"]),
+                    _unflatten(s, "p/"), s["kf_mask"], s["rays"],
+                    s["frame"], s["kf_frames"], fcfg, _consts(s), lw,
+                    lr_rot, lr_trans, n_iters, n_total, pose_accum_step,
+                    draws=list(zip(s["src"], s["ray_idx"], s["ovlp_idx"])),
+                    us=list(s["u"]) if "u" in s else [None] * n_iters)
+                return {"est_c2w": est, "loss": loss}
+            return body
+
+        out = self._program(key, make_body)(inputs)
+        with torch.no_grad():
+            st.est_c2w.copy_(out["est_c2w"])
+        return out["loss"]
+
+    def predicates_fused(self, st: SlamState, pose_local: torch.Tensor,
+                         depth: torch.Tensor, rays_d: torch.Tensor,
+                         wait_id: int, min_cr_len: torch.Tensor, near: float,
+                         far: float, rows: torch.Tensor, cols: torch.Tensor
+                         ) -> Dict[str, torch.Tensor]:
+        """``manager.predicates_fused`` as one program (stage "manager";
+        JAX: ``manager._predicates_fused``), the active and the wait-loop
+        submap device inputs; the caller's one batched host copy
+        (``manager.host_dict``) follows the replay."""
+        inputs = {**_state_inputs(st, ("kf_c2w", "localMLP_first_kf",
+                                       "localMLP_info", "localMLP_max_len")),
+                  "active": _scalar(st.active_submap_id, depth),
+                  "wait": _scalar(wait_id, depth), "pose_local": pose_local,
+                  "depth": depth, "rays_d": rays_d,
+                  "min_cr_len": min_cr_len, "rows": rows, "cols": cols}
+        key = ("manager", near, far, _shapes(inputs))
+
+        def make_body(prog):
+            def body(s: Tensors) -> Tensors:
+                return manager.predicates_fused(
+                    _state(s, active_submap_id=s["active"]),
+                    s["pose_local"], s["depth"], s["rays_d"], s["wait"],
+                    s["min_cr_len"], near, far, s["rows"], s["cols"])
+            return body
+
+        return self._program(key, make_body)(inputs)
+
+    def overlap_verify_icp(self, st: SlamState, depth, rays_d, pose_world,
+                           mo_id: int, active_id: int, rows, cols, K_mat,
+                           kf_frames, cur_frame: int, rr_src, cc_src,
+                           sub_incl, threshold: float, min_trans: float,
+                           min_count: int, k: int, edge: int, H: int, W: int,
+                           n_per: int, n_incl: int, keyframe_every: int,
+                           R: int, n_iters: int = 15,
+                           rel_damping: float = 0.0
+                           ) -> Dict[str, torch.Tensor]:
+        """``system.overlap_verify_icp`` as one program for every
+        verification of a run (stage "verify"; JAX:
+        ``_overlap_verify_icp``): the submap ids, the last tracked frame
+        and the keyframe count are device inputs. It runs only when the
+        manager asks for a verification (unfused from the predicates)."""
+        from . import system
+        inputs = {**_state_inputs(st, _VERIFY_TABLES),
+                  "n_kf": _scalar(st.n_kf, depth),
+                  "mo": _scalar(mo_id, depth),
+                  "active": _scalar(active_id, depth),
+                  "cur": _scalar(cur_frame, depth), "depth": depth,
+                  "rays_d": rays_d, "pose_world": pose_world, "rows": rows,
+                  "cols": cols, "K_mat": K_mat, "kf_frames": kf_frames,
+                  "rr_src": rr_src, "cc_src": cc_src, "sub_incl": sub_incl}
+        statics = (threshold, min_trans, min_count, k, edge, H, W, n_per,
+                   n_incl, keyframe_every, R, n_iters, rel_damping)
+        key = ("verify", statics, _shapes(inputs))
+
+        def make_body(prog):
+            def body(s: Tensors) -> Tensors:
+                return system.overlap_verify_icp(
+                    _state(s, n_kf=s["n_kf"]), s["depth"], s["rays_d"],
+                    s["pose_world"], s["mo"], s["active"], s["rows"],
+                    s["cols"], s["K_mat"], s["kf_frames"], s["cur"],
+                    s["rr_src"], s["cc_src"], s["sub_incl"], threshold,
+                    min_trans, min_count, k, edge, H, W, n_per, n_incl,
+                    keyframe_every, R, n_iters, rel_damping)
+            return body
+
+        return self._program(key, make_body)(inputs)
+
+
+# the state tables the keyframe-pose extraction reads, and verification
+_POSE_TABLES = ("kf_rays", "kf_c2w", "est_c2w", "keyframe_ref",
+                "keyframe_localMLP", "localMLP_first_kf")
+_VERIFY_TABLES = _POSE_TABLES + ("localMLP_info", "kf_frame_ids")

@@ -89,8 +89,19 @@ def add_keyframe(state: SlamState, frame_rays: torch.Tensor, frame_id: int,
     state.n_kf = k + 1
 
 
+def row(x: torch.Tensor, i) -> torch.Tensor:
+    """x[i] for a host int i, or for an integer device scalar i as a
+    gather: indexing by a 0-d tensor reads it on the host (``x[t]`` is
+    ``x[t.item()]``), which waits for the device and cannot be captured
+    in a CUDA graph. Both give the same values."""
+    if isinstance(i, torch.Tensor):
+        return x.index_select(0, i.reshape(1))[0]
+    return x[i]
+
+
 def submap_kf_mask(state: SlamState, submap_id) -> torch.Tensor:
-    """Bool [K]: valid keyframes bound to the submap (either binding)."""
+    """Bool [K]: valid keyframes bound to the submap (either binding).
+    ``state.n_kf`` and ``submap_id`` may be device scalars."""
     K = state.kf_frame_ids.shape[0]
     valid = torch.arange(K, device=state.kf_frame_ids.device) < state.n_kf
     return valid & (state.keyframe_localMLP == submap_id).any(dim=-1)

@@ -50,13 +50,15 @@ Randomness: one ``torch.Generator`` per stage, reseeded from (config seed,
 stage, frame index or call count, and a sharded refine's slot) at each
 use, so a run is reproducible on one device.
 
-The hot stages run as programs (``slam/programs.py``, ``self.programs``):
+The stages run as programs (``slam/programs.py``, ``self.programs``):
 local BA, background refinement, the first fits (the first frame's and a
-new submap's, chunk by chunk) and tracking with the drift gate off. On
-the card each is a CUDA graph captured on its first call at a key and
-replayed after; on the CPU the same objects run the stage eagerly. The
-drift-gated track and the paths over a mesh of several devices call the
-stage functions directly.
+new submap's, chunk by chunk), tracking (with the drift gate on, three
+programs around its one host read a frame), PGO, switch BA, the manager's
+predicates and verification + ICP. On the card each is a CUDA graph
+captured on its first call at a key and replayed after; on the CPU the
+same objects run the stage eagerly. The paths over a mesh of several
+devices, the consistency BA, the mesher and the switch-back bookkeeping
+call the functions directly.
 """
 
 from __future__ import annotations
@@ -84,7 +86,7 @@ from . import manager as manager_mod
 from . import mapper, pose_graph, tracker
 from . import state as slam_state
 from .programs import StagePrograms
-from .state import SlamState
+from .state import SlamState, row
 
 _STAGE_SEED = {"track": 1, "ba": 2, "init": 3, "refine": 4, "switch": 5,
                "render": 6, "polish": 7}
@@ -102,7 +104,9 @@ SWITCH_ICP_DAMPING = 0.01
 # ---------------------------------------------------------------------------
 
 def _anchor_of(st: SlamState, submap_id) -> torch.Tensor:
-    return st.kf_c2w[st.localMLP_first_kf[submap_id]]
+    """Submap submap_id's world anchor (a host int or a device scalar id;
+    gathered on the device either way)."""
+    return row(st.kf_c2w, row(st.localMLP_first_kf, submap_id))
 
 
 def extract_submap_kf_poses(st: SlamState, submap_id,
@@ -116,7 +120,7 @@ def extract_submap_kf_poses(st: SlamState, submap_id,
     M = st.localMLP_first_kf.shape[0]
     anchor_inv = pose_inverse(_anchor_of(st, submap_id))
     kf_ref = st.keyframe_ref
-    first_kf = st.localMLP_first_kf[submap_id]
+    first_kf = row(st.localMLP_first_kf, submap_id)
     idx = torch.arange(K, device=poses.device)
     from_world = anchor_inv @ st.kf_c2w[:K]
     is_other_first = (kf_ref == -1) & (idx != first_kf)
@@ -142,7 +146,7 @@ def writeback_ba_poses(st: SlamState, submap_id, kf_mask: torch.Tensor,
     M = st.localMLP_first_kf.shape[0]
     kf_ref = st.keyframe_ref
     idx = torch.arange(K, device=opt_poses.device)
-    upd = kf_mask & (idx != st.localMLP_first_kf[submap_id])
+    upd = kf_mask & (idx != row(st.localMLP_first_kf, submap_id))
     first_bind = st.keyframe_localMLP[:, 0]
     ordinary = upd & (kf_ref >= 0)
     ovlp_here = upd & (kf_ref == -2) & (first_bind == submap_id)
@@ -162,6 +166,44 @@ def writeback_ba_poses(st: SlamState, submap_id, kf_mask: torch.Tensor,
     st.kf_c2w[:K] = new_anchor
 
 
+def switch_ba_at(st: SlamState, params: Dict, kf_mask: torch.Tensor,
+                 frame_rays: torch.Tensor, i, kf_frames: torch.Tensor,
+                 fcfg: sr.FieldConfig, consts: sr.FieldConsts,
+                 lw: sr.LossWeights, lr_rot: float, lr_trans: float,
+                 n_iters: int, n_total: int, pose_accum_step: int,
+                 generator: Optional[torch.Generator] = None,
+                 draws=None, us=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Switch BA of frame i (a host int or a device scalar) against the
+    active submap's frozen field ``params``, over the keyframes of
+    kf_mask (the JAX package's ``_switch_ba_fused``): their local poses,
+    ``mapper.switch_ba`` and frame i's new pose. Returns (est_c2w with
+    that pose, the last loss); ``draws`` / ``us`` as ``mapper.switch_ba``
+    takes them."""
+    poses_local = extract_submap_kf_poses(st, st.active_submap_id,
+                                          kf_frames)
+    pose, loss = mapper.switch_ba(
+        params, st.kf_rays, kf_mask, poses_local, frame_rays,
+        row(st.est_c2w, i), fcfg, consts, lw, lr_rot, lr_trans, n_iters,
+        n_total, pose_accum_step, generator=generator, draws=draws, us=us)
+    idx = torch.as_tensor(i, device=st.est_c2w.device).reshape(1)
+    return st.est_c2w.index_copy(0, idx, pose[None]), loss
+
+
+def switch_ba_update(st: SlamState, params: Dict, kf_mask: torch.Tensor,
+                     frame_rays: torch.Tensor, i, kf_frames: torch.Tensor,
+                     fcfg: sr.FieldConfig, consts: sr.FieldConsts,
+                     lw: sr.LossWeights, lr_rot: float, lr_trans: float,
+                     n_iters: int, n_total: int, pose_accum_step: int,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """``switch_ba_at`` on the state, in place; returns the last loss."""
+    est, loss = switch_ba_at(st, params, kf_mask, frame_rays, i, kf_frames,
+                             fcfg, consts, lw, lr_rot, lr_trans, n_iters,
+                             n_total, pose_accum_step, generator)
+    st.est_c2w.copy_(est)
+    return loss
+
+
 def switch_state_update(st: SlamState, i: int, rectified: torch.Tensor,
                         back_id: int) -> torch.Tensor:
     """Switch-back bookkeeping (in place): the rectified local pose
@@ -174,26 +216,50 @@ def switch_state_update(st: SlamState, i: int, rectified: torch.Tensor,
     return temp
 
 
-def global_pgo(st: SlamState, local_prev: torch.Tensor,
-               local_aft: torch.Tensor, aft_id: int, prev_id: int,
-               used: int, key_w: float) -> None:
-    """Pose-graph optimization of the submap anchors after a loop closure
-    (in place): edges between adjacent used submaps plus the key edge
-    (aft_id, prev_id) observed as local_prev @ local_aft^-1; submap 0 is
-    fixed; the optimized anchors go back only to rows < used."""
-    M = st.localMLP_info.shape[0]
-    Nk = st.kf_c2w.shape[0]
-    dev = st.kf_c2w.device
-    first_kf = torch.clamp(st.localMLP_first_kf, 0, Nk - 1)
-    anchors = st.kf_c2w[first_kf]
+def pgo_anchors(kf_c2w: torch.Tensor, first_kf_table: torch.Tensor,
+                adjacency: torch.Tensor, local_prev: torch.Tensor,
+                local_aft: torch.Tensor, key_edge: torch.Tensor,
+                used: torch.Tensor, key_w: torch.Tensor,
+                pairs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The anchor table kf_c2w after the pose-graph optimization of a
+    loop closure, with every id and count a device tensor (the JAX
+    package's ``_global_pgo``): edges between adjacent used submaps plus
+    the key edge (key_edge = [aft_id, prev_id]) observed as local_prev @
+    local_aft^-1; submap 0 is fixed; the optimized anchors go back only
+    to the first keyframes of the submaps below ``used`` (a masked write,
+    so ``used`` shapes nothing). ``pairs``: ``pose_graph.edge_pairs``."""
+    M = first_kf_table.shape[0]
+    Nk = kf_c2w.shape[0]
+    dev = kf_c2w.device
+    first_kf = torch.clamp(first_kf_table, 0, Nk - 1)
+    anchors = kf_c2w[first_kf]
     edges, rels, weights = pose_graph.build_pose_graph_problem(
-        anchors, st.localMLP_adjacent, (aft_id, prev_id),
-        local_prev @ pose_inverse(local_aft), key_w, used)
+        anchors, adjacency, key_edge, local_prev @ pose_inverse(local_aft),
+        key_w, used, pairs=pairs)
     ar = torch.arange(M, device=dev)
     node_mask = (ar >= 1) & (ar < used)
     nodes, _ = pose_graph.optimize_pose_graph(anchors, edges, rels, weights,
                                               node_mask, n_iters=10)
-    st.kf_c2w.index_copy_(0, first_kf[:used], nodes[:used])
+    # row r takes node m where r is used submap m's first keyframe (one
+    # at most: the used submaps' first keyframes differ)
+    hit = ((first_kf[None, :] == torch.arange(Nk, device=dev)[:, None])
+           & (ar < used)[None, :])                           # [Nk, M]
+    src = hit.to(torch.int32).argmax(1)
+    return torch.where(hit.any(1)[:, None, None], nodes[src], kf_c2w)
+
+
+def global_pgo(st: SlamState, local_prev: torch.Tensor,
+               local_aft: torch.Tensor, aft_id, prev_id, used,
+               key_w) -> None:
+    """``pgo_anchors`` on the state, in place; the ids, ``used`` and
+    ``key_w`` host numbers or device scalars."""
+    dev = st.kf_c2w.device
+    key = torch.stack([torch.as_tensor(aft_id, device=dev),
+                       torch.as_tensor(prev_id, device=dev)]).long()
+    st.kf_c2w.copy_(pgo_anchors(
+        st.kf_c2w, st.localMLP_first_kf, st.localMLP_adjacent, local_prev,
+        local_aft, key, torch.as_tensor(used, device=dev),
+        torch.as_tensor(key_w, dtype=torch.float32, device=dev)))
 
 
 def consistency_loss(params: Dict[int, Dict], pairs, dirsT, depth, local1,
@@ -269,7 +335,7 @@ def overlap_verify(st: SlamState, depth, rays_d, pose_world, mo_id: int,
            & (uv[..., 1] > edge) & (uv[..., 1] < H - edge)
            & (pts_cam[..., 2] < 0) & top_valid[:, None])     # [k, N]
     mask_pts = vis.any(0)
-    info = st.localMLP_info[mo_id]
+    info = row(st.localMLP_info, mo_id)
     lo = info[1:4] - 0.5 * info[4:7]
     hi = info[1:4] + 0.5 * info[4:7]
     mask_in = pts_in_bbox(pts, lo[None], hi[None])[:, 0]
@@ -296,11 +362,12 @@ def switch_icp(st: SlamState, use_ids, depth, rays_d, mo_id: int,
     anchor_prev = _anchor_of(st, active_id)
     anchor_aft = _anchor_of(st, mo_id)
     pose_local_ini = pose_inverse(anchor_aft) @ (anchor_prev
-                                                 @ st.est_c2w[cur_frame])
+                                                 @ row(st.est_c2w, cur_frame))
     poses_local_all = extract_submap_kf_poses(st, mo_id, kf_frames)
     dst_rays = st.kf_rays[use_ids[:, None], sub_dst].reshape(-1, 7)
     dst_pts, dst_valid = icp_mod.backproject_rays(
-        dst_rays, poses_local_all, use_ids.repeat_interleave(n_per))
+        dst_rays, poses_local_all,
+        use_ids[:, None].expand(-1, n_per).reshape(-1))
     d = depth[rr_src, cc_src][:, None]
     dirs_w = rays_d[rr_src, cc_src] @ pose_local_ini[:3, :3].T
     src_pts = [pose_local_ini[:3, 3] + dirs_w * d]
@@ -310,9 +377,10 @@ def switch_icp(st: SlamState, use_ids, depth, rays_d, mo_id: int,
         prev_locals = extract_submap_kf_poses(st, active_id, kf_frames)
         rel_anchor = pose_inverse(anchor_aft) @ anchor_prev
         for j in range(1, n_incl + 1):
-            kj = max(cur_kf - j, 0)
-            pose_aft = rel_anchor @ prev_locals[kj]
-            rays_k = st.kf_rays[kj][sub_incl]
+            kj = (torch.clamp(cur_kf - j, min=0)
+                  if isinstance(cur_kf, torch.Tensor) else max(cur_kf - j, 0))
+            pose_aft = rel_anchor @ row(prev_locals, kj)
+            rays_k = row(st.kf_rays, kj)[sub_incl]
             dk = rays_k[:, 6:7]
             src_pts.append(pose_aft[:3, 3]
                            + (rays_k[:, :3] @ pose_aft[:3, :3].T) * dk)
@@ -475,6 +543,7 @@ class MIPSFusionTorch:
             manager_mod.ManagerConfig.from_dict(config), self.H, self.W,
             self.keyframe_every, self.device)
         self.manager.find_overlap_fn = self._find_overlapping_region
+        self.manager.predicates_fn = self._manager_predicates
         t = config["tracking"]
         self.switch_interval = t.get("switch_interval", 30)
         sw = t.get("switch", {})
@@ -543,6 +612,7 @@ class MIPSFusionTorch:
                       if self.dgcfg is not None else None)
         self._prev_rescued = torch.zeros((), dtype=torch.bool,
                                          device=self.device)
+        self._gate_fired = False
         # CUDA event pairs per stage (no host sync while the loop runs)
         self._events = defaultdict(list)
         self.stage_calls = defaultdict(int)
@@ -757,9 +827,8 @@ class MIPSFusionTorch:
     def track(self, packed: torch.Tensor, i: int):
         args, levers = self._track_args(packed, i)
         gate_on = self.dgcfg is not None
-        if gate_on or self._ray_mesh is not None:
-            # the drift gate reads the host once a frame; the sharded
-            # path splits over a mesh: both run the function
+        if self._ray_mesh is not None:
+            # the sharded path splits over a mesh: it runs the function
             res = tracker.track_frame_update(*args, **levers)
         else:
             res = self.programs.track_frame_update(*args, **levers)
@@ -769,6 +838,8 @@ class MIPSFusionTorch:
         self._prev_rescued = res.rescued
         if gate_on:
             self._gate = res.gate
+            # the host read the gate's flags: no refresh flag means it fired
+            self._gate_fired = res.refresh is None
         self.track_log.append(res._replace(gate=None))
 
     def _ba_args(self, packed: torch.Tensor, i: int) -> Tuple:
@@ -820,6 +891,11 @@ class MIPSFusionTorch:
         if not self.use_manager:
             self.state.keyframe_localMLP[kf_id, 0] = self.active_id
             self._host_kf_bind[kf_id] = (self.active_id, -1)
+
+    def _manager_predicates(self, *args) -> Dict[str, torch.Tensor]:
+        """The manager's predicates (``manager.predicates_fused``'s
+        arguments) through their program."""
+        return self.programs.predicates_fused(*args)
 
     def _manager_step(self, packed: torch.Tensor, i: int, kf_id: int,
                       force: bool) -> int:
@@ -902,19 +978,16 @@ class MIPSFusionTorch:
 
     def _switch_ba(self, packed: torch.Tensor, top_kf_ids, i: int):
         st = self.state
-        kf_mask = torch.zeros(st.kf_rays.shape[0], dtype=torch.bool,
-                              device=self.device)
-        kf_mask[torch.as_tensor(np.asarray(top_kf_ids),
-                                device=self.device)] = True
-        pose, _ = mapper.switch_ba(
-            self.field.params(detach=True), st.kf_rays, kf_mask,
-            extract_submap_kf_poses(st, st.active_submap_id,
-                                    self.kf_frames),
-            packed.reshape(-1, 7), st.est_c2w[i], self.fcfg, self.consts,
+        # the top-keyframe mask is made on the host, one copy to the card
+        kf_mask = np.zeros(st.kf_rays.shape[0], bool)
+        kf_mask[np.asarray(top_kf_ids)] = True
+        self.programs.switch_ba_update(
+            st, self.field.params(detach=True),
+            torch.as_tensor(kf_mask, device=self.device),
+            packed.reshape(-1, 7), i, self.kf_frames, self.fcfg, self.consts,
             self.lw, self.sw_lr_rot, self.sw_lr_trans, self.sw_map_num,
             self.mcfg.sample, self.mcfg.pose_accum_step,
-            generator=self._generator("switch", i))
-        st.est_c2w[i] = pose
+            self._generator("switch", i))
 
     def _drain_switch_chain(self):
         """The deferred PGO of a switch-back (run on the frame after the
@@ -972,15 +1045,15 @@ class MIPSFusionTorch:
         rr_src, cc_src, sub_incl = self._icp_subs
         k = self.near_kf_num
         R = self.rays_per_kf
-        ver = manager_mod.host_dict(overlap_verify_icp(
+        ver = manager_mod.host_dict(self._timed(
+            "verify", self.programs.overlap_verify_icp,
             st, depth, rays_d, slam_state.to_like(pose_world, st.kf_c2w),
             mo_id, active_id, rows, cols, self._K_mat, self.kf_frames,
             self._last_tracked_frame, rr_src, cc_src, sub_incl,
-            self.sw_align_threshold, self.sw_min_trans, min_count, k=k,
-            edge=edge, H=self.H, W=self.W, n_per=max(1, self.icp_dst_n // k),
-            n_incl=self.sw_including_last,
-            keyframe_every=self.keyframe_every, R=R,
-            rel_damping=SWITCH_ICP_DAMPING))
+            self.sw_align_threshold, self.sw_min_trans, min_count,
+            k, edge, self.H, self.W, max(1, self.icp_dst_n // k),
+            self.sw_including_last, self.keyframe_every, R, 15,
+            SWITCH_ICP_DAMPING))
         if int(ver["n_related"]) == 0 or \
                 int(ver["n_valid"]) < self.manager.cfg.min_ovlp_pts:
             return False, None
@@ -1100,7 +1173,8 @@ class MIPSFusionTorch:
         closure. ``ids`` = (switched-to, previous) submap."""
         if self._host_used < 2 or self.temp_local_pose is None:
             return
-        self._timed("pgo", global_pgo, self.state, self.temp_local_pose,
+        self._timed("pgo", self.programs.global_pgo, self.state,
+                    self.temp_local_pose,
                     self.rectified_local_pose, int(ids[0]), int(ids[1]),
                     self._host_used, self.key_edge_weight)
         # the PGO rewrote the frame poses: the anchor's pose is stale
@@ -1181,6 +1255,12 @@ class MIPSFusionTorch:
                         self.dataset.gt_pose(0), self.mcfg.first_iters)
             return
         self._timed("track", self.track, packed, i)
+        if self.dgcfg is not None:
+            # the gated track's calls by the host's read: fired or not
+            stage = "track_fired" if self._gate_fired else "track_quiet"
+            self.stage_calls[stage] += 1
+            if self._events["track"]:
+                self._events[stage].append(self._events["track"][-1])
         if self._pending_init_iters > 0:
             self._timed("init_chunk", self._drain_init_chunk)
         if self._pending_switch is not None and i > self._pending_switch["i"]:

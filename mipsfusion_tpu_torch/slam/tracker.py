@@ -20,7 +20,12 @@ rays split where their sizes divide by the mesh's (``mesh=``).
 ``track_pose`` is the frame's tracking without the drift gate, a function
 of the previous two poses that reads no host value: the body of the track
 program (``slam/programs.py``), which makes its draws beforehand
-(``track_draws``) and commits the pose after (``commit_pose``).
+(``track_draws``) and commits the pose after (``commit_pose``). The drift
+gate splits at its host read into pieces that read no host value, the
+bodies of the gated track's three programs: ``gate_read`` (after
+``track_pose``), ``gate_rescue`` (a fired frame; its polish draws made
+beforehand, ``polish_draws``) and ``commit_pose_at`` with
+``gate_refresh`` (a frame index on the device).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..ops.geometry import (matrix_to_quaternion, pose_inverse, qt_to_matrix,
 from ..parallel.sharding import (Mesh, column_sharded, divides,
                                  replicate_params, split)
 from . import icp as icp_mod
+from .state import row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -609,6 +615,116 @@ def track_pose(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
             (rays_d_cam, target_rgb, target_d))
 
 
+class GateReading(NamedTuple):
+    """The drift gate's reading of a tracked pose: the size of the
+    correction ICP onto the anchor proposes (m), the pose it proposes,
+    whether the anchor is armed, and the host's one read a frame as a
+    [2] bool: did the gate fire, and, were it not to, is the anchor due
+    for a refresh from this frame."""
+    slip: torch.Tensor
+    pose_icp: torch.Tensor
+    armed: torch.Tensor
+    flags: torch.Tensor
+
+
+def gate_source(depth_img: torch.Tensor, rays_dir_img: torch.Tensor,
+                dgcfg: DriftGateConfig):
+    """The frame's strided back-projection the gate registers: (camera
+    points [n, 3], valid [n], number valid)."""
+    H, W = depth_img.shape
+    dev = depth_img.device
+    sr_, sc_ = torch.meshgrid(_linspace_idx(0, H - 1, dgcfg.src_rows, dev),
+                              _linspace_idx(0, W - 1, dgcfg.src_cols, dev),
+                              indexing="ij")
+    sr_, sc_ = sr_.reshape(-1), sc_.reshape(-1)
+    sd = depth_img[sr_, sc_][:, None]
+    src_valid = sd[:, 0] > 0.0
+    return rays_dir_img[sr_, sc_] * sd, src_valid, src_valid.sum()
+
+
+def gate_kf_pose(est_c2w: torch.Tensor, gate: GateAnchor) -> torch.Tensor:
+    """The pose of the anchor's frame (gathered on the device)."""
+    return row(est_c2w, torch.clamp(gate.kf_frame, min=0))
+
+
+def gate_slip(p4: torch.Tensor, src, gate: GateAnchor,
+              kf_pose: torch.Tensor, dgcfg: DriftGateConfig):
+    """ICP of the frame's cloud ``src`` (``gate_source``) onto the anchor
+    from pose p4: (the size of the correction it proposes, the drift
+    reading; whether enough points matched; the pose it proposes). A
+    median plane distance would under-measure slips along the dominant
+    planes."""
+    src_cam, src_valid, n_valid = src
+    rel0 = pose_inverse(kf_pose) @ p4
+    src0 = src_cam @ rel0[:3, :3].T + rel0[:3, 3]
+    res = icp_mod.icp_point_to_plane(
+        src0, src_valid, gate.pts, gate.valid, gate.normals,
+        dgcfg.icp_thresh, n_iters=dgcfg.icp_iters,
+        rel_damping=dgcfg.icp_damping, robust_delta=dgcfg.icp_robust_delta)
+    T = res.transform
+    theta = torch.arccos(torch.clamp(
+        (torch.diagonal(T[:3, :3]).sum() - 1.0) * 0.5, -1.0, 1.0))
+    slip = torch.linalg.norm(T[:3, 3]) + dgcfg.rot_lever * theta
+    enough = res.n_inliers >= dgcfg.min_inlier_frac * n_valid
+    return slip, enough, kf_pose @ (T @ rel0)
+
+
+def gate_read(pose: torch.Tensor, depth_img: torch.Tensor,
+              rays_dir_img: torch.Tensor, est_c2w: torch.Tensor, frame_idx,
+              gate: GateAnchor, dgcfg: DriftGateConfig) -> GateReading:
+    """The drift gate's reading of the tracked ``pose`` of frame
+    ``frame_idx`` (a host int or a device scalar), reading no host value."""
+    slip, enough, pose_icp = gate_slip(
+        pose, gate_source(depth_img, rays_dir_img, dgcfg), gate,
+        gate_kf_pose(est_c2w, gate), dgcfg)
+    armed = gate.kf_frame >= 0
+    fire = armed & enough & (slip > dgcfg.thresh)
+    return GateReading(slip, pose_icp, armed, torch.stack(
+        [fire, _anchor_due(dgcfg, gate, frame_idx, slip)]))
+
+
+def polish_draws(generator: Optional[torch.Generator], gcfg: GOConfig,
+                 fcfg: sr.FieldConfig, dgcfg: DriftGateConfig,
+                 n_iter_go: int, device) -> List[Optional[torch.Tensor]]:
+    """What the rescue's polish GO draws from its generator, in order."""
+    if not (dgcfg.polish and n_iter_go > 0):
+        return []
+    return [sr.draw_u(gcfg.n_rays, fcfg, generator, device)
+            for _ in range(n_iter_go)]
+
+
+def gate_rescue(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
+                gcfg: GOConfig, dgcfg: DriftGateConfig, pose: torch.Tensor,
+                reading: GateReading, depth_img: torch.Tensor,
+                rays_dir_img: torch.Tensor, est_c2w: torch.Tensor,
+                gate: GateAnchor, go_rays, n_iter_go: int,
+                lw: sr.LossWeights,
+                polish_generator: Optional[torch.Generator] = None,
+                mesh: Optional[Mesh] = None,
+                us: Optional[Sequence[torch.Tensor]] = None):
+    """The rescue of a frame the gate fired on: (pose, drift reading,
+    rescued). The ICP pose is verified first, with the same instrument:
+    from a right pose a second ICP proposes almost no further correction
+    (the polish optimizes against a map that may have been dragged, so it
+    gets no veto); then polished by GO anchored to it on GO's rays
+    ``go_rays`` (directions, colours, depths) and adopted where verified.
+    ``us``: the polish's draws (``polish_draws``), else drawn from
+    ``polish_generator``."""
+    slip_v, enough_v, _ = gate_slip(
+        reading.pose_icp, gate_source(depth_img, rays_dir_img, dgcfg), gate,
+        gate_kf_pose(est_c2w, gate), dgcfg)
+    rescued = enough_v & (slip_v < 0.5 * reading.slip)
+    pose_r = reading.pose_icp
+    if dgcfg.polish and n_iter_go > 0:
+        pgcfg = dataclasses.replace(gcfg, motion_prior_w=dgcfg.polish_prior_w)
+        pose_r, _ = go_optimize(params, fcfg, consts, pgcfg, *go_rays,
+                                reading.pose_icp, n_iter_go, lw,
+                                polish_generator, prior_pose=reading.pose_icp,
+                                mesh=mesh, us=us)
+    return (torch.where(rescued, pose_r, pose),
+            torch.where(rescued, slip_v, reading.slip), rescued)
+
+
 def track_frame(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
                 rcfg: ROConfig, gcfg: GOConfig, pst: torch.Tensor,
                 generator: Optional[torch.Generator], rgb_img: torch.Tensor,
@@ -629,76 +745,39 @@ def track_frame(params: Dict, fcfg: sr.FieldConfig, consts: sr.FieldConsts,
     not extrapolate; ``polish_generator``: the rescue's GO polish draws
     (the tracking generator's stream stays as it is with the gate off);
     ``mesh``: RO's queries, GO and the polish GO split over it where their
-    sizes divide (JAX: ``ray_sharding``)."""
-    H, W = depth_img.shape
-    dev = depth_img.device
-    res, (rays_d_cam, target_rgb, target_d) = track_pose(
+    sizes divide (JAX: ``ray_sharding``). With the gate on, the host reads
+    ``GateReading.flags`` once (JAX: ``lax.cond``) and runs the rescue
+    (``gate_rescue``) only on a fired frame."""
+    res, go_rays = track_pose(
         params, fcfg, consts, rcfg, gcfg, pst, generator, rgb_img,
         depth_img, rays_dir_img, est_c2w[frame_idx - 1],
         est_c2w[max(frame_idx - 2, 0)], use_const_speed, lw, n_iter_ro,
         n_iter_go, loss_ewma, prev_loss, prev_rescued, mesh)
     if not _gate_on(dgcfg, gate):
         return res
-    pose, loss, loss_ewma, ok = res[:4]
-    ss_scale, false = res.ss_scale, res.rescued
+    reading = gate_read(res.pose, depth_img, rays_dir_img, est_c2w,
+                        frame_idx, gate, dgcfg)
+    fire_h, refresh = reading.flags.tolist()
+    return gate_result(res, reading, gate, refresh, *(
+        gate_rescue(params, fcfg, consts, gcfg, dgcfg, res.pose, reading,
+                    depth_img, rays_dir_img, est_c2w, gate, go_rays,
+                    n_iter_go, lw, polish_generator, mesh)
+        if fire_h else ()))
 
-    sr_, sc_ = torch.meshgrid(_linspace_idx(0, H - 1, dgcfg.src_rows, dev),
-                              _linspace_idx(0, W - 1, dgcfg.src_cols, dev),
-                              indexing="ij")
-    sr_, sc_ = sr_.reshape(-1), sc_.reshape(-1)
-    sd = depth_img[sr_, sc_][:, None]
-    src_cam = rays_dir_img[sr_, sc_] * sd
-    src_valid = sd[:, 0] > 0.0
-    n_valid = src_valid.sum()
-    kf_pose = est_c2w[torch.clamp(gate.kf_frame, min=0)]
-    kf_inv = pose_inverse(kf_pose)
 
-    def slip_of(p4):
-        """ICP of the frame's cloud onto the anchor from pose p4: the size
-        of the correction it proposes is the drift reading (a median
-        plane distance under-measures slips along the dominant planes)."""
-        rel0 = kf_inv @ p4
-        src0 = src_cam @ rel0[:3, :3].T + rel0[:3, 3]
-        res = icp_mod.icp_point_to_plane(
-            src0, src_valid, gate.pts, gate.valid, gate.normals,
-            dgcfg.icp_thresh, n_iters=dgcfg.icp_iters,
-            rel_damping=dgcfg.icp_damping,
-            robust_delta=dgcfg.icp_robust_delta)
-        T = res.transform
-        theta = torch.arccos(torch.clamp(
-            (torch.diagonal(T[:3, :3]).sum() - 1.0) * 0.5, -1.0, 1.0))
-        slip = torch.linalg.norm(T[:3, 3]) + dgcfg.rot_lever * theta
-        enough = res.n_inliers >= dgcfg.min_inlier_frac * n_valid
-        return slip, enough, kf_pose @ (T @ rel0)
-
-    slip, enough, pose_icp = slip_of(pose)
-    drift_res, rescued = slip, false
-    armed = gate.kf_frame >= 0
-    fire = armed & enough & (slip > dgcfg.thresh)
-    # the host's one read a frame: did the gate fire, and, were it not to,
-    # is the anchor due to be refreshed from this frame (JAX: lax.cond)
-    fire_h, refresh = torch.stack(
-        [fire, _anchor_due(dgcfg, gate, frame_idx, slip)]).tolist()
-    if fire_h:
-        # verify first, with the same instrument: from a right pose a
-        # second ICP proposes almost no further correction (the polish
-        # optimizes against a map that may have been dragged, so it gets
-        # no veto)
-        slip_v, enough_v, _ = slip_of(pose_icp)
-        rescued = enough_v & (slip_v < 0.5 * slip)
-        pose_r = pose_icp
-        if dgcfg.polish and n_iter_go > 0:
-            pgcfg = dataclasses.replace(gcfg,
-                                        motion_prior_w=dgcfg.polish_prior_w)
-            pose_r, _ = go_optimize(params, fcfg, consts, pgcfg, rays_d_cam,
-                                    target_rgb, target_d, pose_icp,
-                                    n_iter_go, lw, polish_generator,
-                                    prior_pose=pose_icp, mesh=mesh)
-        pose = torch.where(rescued, pose_r, pose)
-        drift_res = torch.where(rescued, slip_v, slip)
-        refresh = None
-    return TrackResult(pose, loss, loss_ewma, ok, drift_res, armed, fire,
-                       rescued, ss_scale, gate, refresh)
+def gate_result(res: TrackResult, reading: GateReading, gate: GateAnchor,
+                refresh: bool, pose: Optional[torch.Tensor] = None,
+                drift_res: Optional[torch.Tensor] = None,
+                rescued: Optional[torch.Tensor] = None) -> TrackResult:
+    """``track_pose``'s result with the drift gate's fields: on a fired
+    frame the rescue's (pose, reading, rescued), and no host refresh flag
+    (decided on the device from the rescue's reading)."""
+    fired = pose is not None
+    return res._replace(
+        pose=pose if fired else res.pose,
+        drift_res=drift_res if fired else reading.slip, armed=reading.armed,
+        fired=reading.flags[0], rescued=rescued if fired else res.rescued,
+        gate=gate, refresh=None if fired else refresh)
 
 
 def commit_pose(state, frame_idx: int, pose: torch.Tensor,
@@ -714,6 +793,46 @@ def commit_pose(state, frame_idx: int, pose: torch.Tensor,
     else:
         state.est_c2w_rel[frame_idx] = (pose_inverse(state.est_c2w[kf_frame])
                                         @ pose)
+
+
+def commit_pose_at(est_c2w: torch.Tensor, est_c2w_rel: torch.Tensor,
+                   keyframe_ref: torch.Tensor, active_first_kf: torch.Tensor,
+                   frame: torch.Tensor, pose: torch.Tensor,
+                   keyframe_every: int):
+    """``commit_pose`` at a device frame index: the new (est_c2w,
+    est_c2w_rel, keyframe_ref), the keyframe's branch chosen on the
+    device (both rows computed, one kept)."""
+    f = frame.reshape(1)
+    kf_id = f // keyframe_every
+    is_kf = (f % keyframe_every == 0)[0]
+    est_c2w = est_c2w.index_copy(0, f, pose[None])
+    rel = pose_inverse(row(est_c2w, kf_id[0] * keyframe_every)) @ pose
+    return (est_c2w,
+            torch.where(is_kf, est_c2w_rel,
+                        est_c2w_rel.index_copy(0, f, rel[None])),
+            torch.where(is_kf, keyframe_ref.index_copy(
+                0, kf_id, active_first_kf.reshape(1)), keyframe_ref))
+
+
+def gate_refresh(gate: GateAnchor, packed_frame: torch.Tensor, frame_idx,
+                 dgcfg: DriftGateConfig,
+                 drift_res: Optional[torch.Tensor] = None) -> GateAnchor:
+    """The anchor after frame ``frame_idx`` (a host int or a device
+    scalar) in its two forms: the refresh was due (``drift_res`` None),
+    the anchor is this frame's; after a rescue, it is this frame's where
+    ``_anchor_due`` on the rescue's reading, else unchanged."""
+    pts, normals, valid = gate_anchor(packed_frame, dgcfg.anchor_rows,
+                                      dgcfg.anchor_cols)
+    frame = (frame_idx.to(gate.kf_frame.dtype).reshape(())
+             if isinstance(frame_idx, torch.Tensor)
+             else torch.full_like(gate.kf_frame, frame_idx))
+    if drift_res is None:
+        return GateAnchor(pts, normals, valid, frame)
+    do = _anchor_due(dgcfg, gate, frame_idx, drift_res)
+    return GateAnchor(
+        torch.where(do, pts, gate.pts), torch.where(do, normals, gate.normals),
+        torch.where(do, valid, gate.valid),
+        torch.where(do, frame, gate.kf_frame))
 
 
 def track_frame_update(params: Dict, fcfg: sr.FieldConfig,
@@ -744,14 +863,6 @@ def track_frame_update(params: Dict, fcfg: sr.FieldConfig,
     commit_pose(state, frame_idx, res.pose, keyframe_every)
     if not _gate_on(dgcfg, gate) or res.refresh is False:
         return res
-    pts, normals, valid = gate_anchor(packed_frame, dgcfg.anchor_rows,
-                                      dgcfg.anchor_cols)
-    frame = torch.full_like(gate.kf_frame, frame_idx)
-    if res.refresh:
-        return res._replace(gate=GateAnchor(pts, normals, valid, frame))
-    do = _anchor_due(dgcfg, gate, frame_idx, res.drift_res)
-    new = GateAnchor(
-        torch.where(do, pts, gate.pts), torch.where(do, normals, gate.normals),
-        torch.where(do, valid, gate.valid),
-        torch.where(do, frame, gate.kf_frame))
-    return res._replace(gate=new)
+    return res._replace(gate=gate_refresh(
+        gate, packed_frame, frame_idx, dgcfg,
+        None if res.refresh else res.drift_res))

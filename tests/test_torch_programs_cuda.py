@@ -1,10 +1,11 @@
 """The stage programs on the card: each program's replay gives the bits of
 the stage function called eagerly on copies of the same inputs from an
 identically seeded generator (local BA, refine, track, a chunk of the
-first fit, after a short run of the flagship field on small frames), a
-replay adds the launches the eager call makes to the kernels' counters,
-and a capture that meets a host read raises, naming the stage and the
-key.
+first fit; PGO, switch BA, the manager's predicates, a verification +
+ICP; the drift-gated track quiet, with its refresh due and fired, after
+a short run of the flagship field on small frames), a replay adds the
+launches the eager call makes to the kernels' counters, and a capture
+that meets a host read raises, naming the stage and the key.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. This file imports neither jax nor the JAX package:
@@ -24,6 +25,11 @@ from mipsfusion_tpu_torch.slam.system import MIPSFusionTorch
 
 pytestmark = pytest.mark.cuda
 STAGES = ("ba", "refine", "track", "fit")
+LOOP_STAGES = ("pgo", "switch_ba", "manager", "verify")
+GATE_STAGES = ("track_gate", "track_due", "track_fired")
+# the stages that launch kernels (PGO, the predicates and verification
+# launch none)
+LAUNCHING = STAGES + ("switch_ba",) + GATE_STAGES
 
 
 def _device():
@@ -53,21 +59,35 @@ def run():
     return slam, ds
 
 
-@pytest.mark.parametrize("stage", STAGES)
+def _pair(slam, ds, stage):
+    if stage in STAGES:
+        return chip_smoke.stage_pairs(slam, ds, ds.num_frames - 1)[stage]
+    if stage in LOOP_STAGES:
+        return chip_smoke.loop_pairs(slam, ds)[stage]
+    return chip_smoke.gate_pairs(slam, ds)[stage]
+
+
+@pytest.mark.parametrize("stage", STAGES + LOOP_STAGES + GATE_STAGES)
 def test_replay_equals_the_eager_call(run, stage):
     slam, ds = run
-    prog, eager = chip_smoke.stage_pairs(slam, ds, ds.num_frames - 1)[stage]
+    prog, eager = _pair(slam, ds, stage)
     prog([])                                  # captured, if it was not
     for _ in range(2):
-        assert chip_smoke._bits_equal(prog([]), eager([]))
+        out = prog([])
+        assert chip_smoke._bits_equal(out, eager([]))
+    if stage in GATE_STAGES:
+        fired = bool(out[0][chip_smoke.TRACK_FIELDS.index("fired")])
+        assert fired == (stage == "track_fired")
+        assert bool(out[2][0]) == (stage == "track_due")
 
 
-@pytest.mark.parametrize("stage", STAGES)
+@pytest.mark.parametrize("stage", LAUNCHING)
 def test_replay_counts_the_eager_launches(run, stage):
     """The counters after a replay moved exactly as after the eager call
-    (totals, per device, K2 with weight gradients, K1's sdf-only sizes)."""
+    (totals, per device, K2 with weight gradients, K1's sdf-only sizes);
+    the gated track's launches split over its read and its rescue."""
     slam, ds = run
-    prog, eager = chip_smoke.stage_pairs(slam, ds, ds.num_frames - 1)[stage]
+    prog, eager = _pair(slam, ds, stage)
     prog([])
     fc.reset_launch_counts()
     eager([])
@@ -77,6 +97,30 @@ def test_replay_counts_the_eager_launches(run, stage):
     assert fc.launch_counters() == want
     assert want[("field_forward", "launches")] > 0
     fc.reset_launch_counts()
+
+
+def test_syev_batched_is_eighs_bits_and_captures():
+    """The normals' cuSOLVER call gives torch.linalg.eigh's eigenvalues
+    and eigenvectors bit for bit (flat, elongated and zero covariances),
+    and a program of it replays them."""
+    from mipsfusion_tpu_torch.ops import cusolver
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(4096, 10, 3, device=dev, generator=g) * torch.tensor(
+        [1.0, 0.5, 0.01], device=dev)
+    x = x - x.mean(1, keepdim=True)
+    cov = torch.einsum("nki,nkj->nij", x, x)
+    cov[:8] = 0.0
+    ref = torch.linalg.eigh(cov)
+    values, vectors = cusolver.syev_batched(cov)
+    assert torch.equal(values, ref.eigenvalues)
+    assert torch.equal(vectors, ref.eigenvectors)
+    prog = programs.Program(
+        "normals", ("normals",),
+        lambda s: {"v": cusolver.syev_batched(s["c"])[1]},
+        programs.CudaGraphs(dev))
+    prog({"c": cov})
+    assert torch.equal(prog({"c": cov})["v"], ref.eigenvectors)
 
 
 def test_zz_a_host_read_fails_the_capture():

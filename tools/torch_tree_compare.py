@@ -5,7 +5,7 @@ wrappers' host time a call.
     python3 tools/torch_tree_compare.py run <checkout> <out.npz>
     python3 tools/torch_tree_compare.py compare <a.npz> <b.npz>
     python3 tools/torch_tree_compare.py stages <checkout> [--scale]
-        [--eager] [--torch-adam]
+        [--seeds 0,1] [--stress] [--eager] [--torch-adam]
 
 ``run`` imports ``<checkout>/mipsfusion_tpu_torch`` (its own kernels, built
 at first use; it needs the card), makes the flagship field ([32, 64] x F4
@@ -32,8 +32,14 @@ steady window: both submaps made, no switch) run under
 the union of the device's kernel, copy and set intervals in it (busy),
 and the idle share 1 - busy / wall; with ``--scale`` also
 configs/synthetic/snake_fast.yaml as the smoke's phase 10 runs it (600
-frames: FPS, stage ms, ATE, submaps). Run it once per checkout, in turns
-(parent, change, change, parent), to compare two trees on one card.
+frames: FPS, stage ms, ATE, submaps); with ``--seeds`` the outback at
+each further seed of the list as the first (``outback_<seed>``); with
+``--stress`` the smoke's stress run (b), every robustness lever on
+(chip_smoke.stress_config, 120 frames), whose stage ms split the gated
+track's calls into those the gate fired on and the others
+(``track_fired``, ``track_quiet``, on trees that record them). Run it
+once per checkout, in turns (parent, change, change, parent), to compare
+two trees on one card.
 On a checkout with stage programs (``slam/programs.py``), ``--eager``
 runs the stages by their functions instead (the programs' oracle) and
 ``--torch-adam`` gives the map ``torch.optim.Adam`` as the trees before
@@ -176,10 +182,15 @@ class _EagerStages:
     """The stage programs' methods as the stage functions themselves."""
 
     def __init__(self):
-        from mipsfusion_tpu_torch.slam import mapper, tracker
+        from mipsfusion_tpu_torch.slam import manager, mapper, system, tracker
         self.local_ba = mapper.local_ba
         self.track_frame_update = tracker.track_frame_update
         self._fit = mapper.init_submap_fit
+        # the loop-closure stages, on trees that run them as programs
+        self.global_pgo = system.global_pgo
+        self.switch_ba_update = getattr(system, "switch_ba_update", None)
+        self.predicates_fused = manager.predicates_fused
+        self.overlap_verify_icp = system.overlap_verify_icp
 
     def init_submap_fit(self, *args, chunk=0):
         return self._fit(*args)
@@ -203,11 +214,11 @@ def _system(cfg, ds, eager: bool, dev=None):
     return slam
 
 
-def _outback(eager: bool):
+def _outback(eager: bool, seed: int = 0):
     import torch
     from mipsfusion_tpu_torch.config import flagship_outback
     from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
-    cfg = flagship_outback(use_manager=True, seed=0)
+    cfg = flagship_outback(use_manager=True, seed=seed)
     cfg["data"]["output"] = None
     dev = torch.device("cuda")
     ds = SyntheticDataset(cfg, n_frames=200, trajectory="outback", span=1.0,
@@ -216,12 +227,20 @@ def _outback(eager: bool):
 
 
 def _summary(slam, res) -> dict:
+    """The run's numbers; a stage's ms a call is also split into its first
+    call (a program's warm-up and capture) and the mean of the rest."""
     from mipsfusion_tpu_torch.ops import field_cuda as fc
+    stage_ms = slam.stage_ms()
+    ms = {k: [a.elapsed_time(b) for a, b in v]
+          for k, v in slam._events.items()}
     return {"fps": res["fps"],
             "ate_m": res["absolute_translational_error.rmse"],
             "n_submaps": res["n_submaps"],
             "switches": [list(e) for e in slam.switch_events],
-            "stage_ms": slam.stage_ms(), "stage_calls": dict(slam.stage_calls),
+            "stage_ms": stage_ms, "stage_calls": dict(slam.stage_calls),
+            "stage_ms_first": {k: v[0] for k, v in ms.items()},
+            "stage_ms_after_first": {k: float(np.mean(v[1:]))
+                                     for k, v in ms.items() if len(v) > 1},
             "launches": fc.launch_counts()}
 
 
@@ -260,7 +279,7 @@ def _idle_window(eager: bool, w0: int = 120, w1: int = 160) -> dict:
 
 
 def stages(checkout: str, scale: bool = False, eager: bool = False,
-           torch_adam: bool = False):
+           torch_adam: bool = False, seeds=(0,), stress: bool = False):
     sys.path.insert(0, os.path.abspath(checkout))
     import torch
     from mipsfusion_tpu_torch.ops import field_cuda as fc
@@ -279,7 +298,21 @@ def stages(checkout: str, scale: bool = False, eager: bool = False,
     out["outback"] = _summary(slam, res)
     out["outback"]["wall_s"] = time.time() - t0
     del slam
+    for seed in seeds[1:]:
+        fc.reset_launch_counts()
+        slam, _ = _outback(eager, seed)
+        out[f"outback_{seed}"] = _summary(slam, slam.run(verbose=False))
+        del slam
     out["idle"] = _idle_window(eager)
+    if stress:
+        import chip_smoke
+        from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
+        cfg = chip_smoke.stress_config(True)
+        fc.reset_launch_counts()
+        slam = _system(cfg, SyntheticDataset(cfg), eager)
+        out["stress"] = _summary(slam, slam.run(verbose=False))
+        out["stress"]["track_counts"] = slam.track_counts()
+        del slam
     if scale:
         from mipsfusion_tpu_torch.config import load_config
         from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
@@ -310,11 +343,15 @@ def main(argv=None):
     st.add_argument("--scale", action="store_true")
     st.add_argument("--eager", action="store_true")
     st.add_argument("--torch-adam", action="store_true")
+    st.add_argument("--seeds", default="0",
+                    help="comma-separated outback seeds, the first profiled")
+    st.add_argument("--stress", action="store_true")
     args = ap.parse_args(argv)
     if args.cmd == "run":
         run(args.checkout, args.out)
     elif args.cmd == "stages":
-        stages(args.checkout, args.scale, args.eager, args.torch_adam)
+        stages(args.checkout, args.scale, args.eager, args.torch_adam,
+               tuple(int(x) for x in args.seeds.split(",")), args.stress)
     else:
         compare(args.a, args.b)
     return 0
