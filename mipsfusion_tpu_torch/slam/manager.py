@@ -74,13 +74,22 @@ class ManagerConfig:
         )
 
 
-def host_dict(d: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+def host_dict(d: Dict[str, torch.Tensor], clock=None, stage: str = "read"
+              ) -> Dict[str, np.ndarray]:
     """Bring a dict of small tensors to the host in ONE copy (float64
     holds every float32 and every index exactly); each entry comes back
-    as numpy with its shape and kind (float32, int64 or bool)."""
+    as numpy with its shape and kind (float32, int64 or bool). Every
+    device-to-host read inside the frame comes through here: with
+    ``clock`` (a ``programs.HostClock``) it is counted, its bytes and its
+    host time (the wait for the device) under the open stage span, or
+    outside any under ``stage``."""
+    if clock is not None:
+        t = clock.start(stage, clock.READ)
     keys = list(d)
     flat = torch.cat([d[k].reshape(-1).to(torch.float64) for k in keys])
     h = flat.cpu().numpy()
+    if clock is not None:
+        clock.stop(stage, clock.READ, t, h.nbytes)
     out, off = {}, 0
     for k in keys:
         t = d[k]
@@ -306,6 +315,8 @@ class Manager:
         # the predicates (``predicates_fused``'s arguments and result); the
         # system installs its program of them
         self.predicates_fn = predicates_fused
+        # the system's HostClock, which counts the predicates' host read
+        self.clock = None
 
     # -- helpers ----------------------------------------------------------
 
@@ -398,7 +409,8 @@ class Manager:
         """One device program and ONE host copy per keyframe."""
         return host_dict(self.predicates_fn(
             st, pose_local, depth, rays_d, max(wait_id, 0), self.min_cr_len,
-            self.cfg.near, self.cfg.far, self.cr_rows, self.cr_cols))
+            self.cfg.near, self.cfg.far, self.cr_rows, self.cr_cols),
+            self.clock, "manager")
 
     def _process_normal(self, st: SlamState, depth, rays_d, pose_local,
                         frame_id: int, kf_id: int, force: bool, pred=None):

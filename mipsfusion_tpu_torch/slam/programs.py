@@ -37,6 +37,13 @@ What a replay cannot see, it is given:
 - the kernels' launch counters: what the capture counted is added once a
   replay (``field_cuda.add_launch_counts``).
 
+The host's share of a call is counted by phase (``HostClock``): the
+draws, the inputs copied in, the launch (the replay; on the CPU the
+eager body), the outputs copied out and the state written back, the
+warm-up and capture, and the device-to-host reads, each under the
+system's stage span open around the call. No span goes inside a body: a
+capture records no host code.
+
 The stages (``StagePrograms``): ``local_ba`` (local BA, and background
 refinement: a fresh optimizer, ``include_current=False``),
 ``init_submap_fit`` (the first fits, one program a chunk of iterations),
@@ -57,7 +64,8 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
-from typing import Callable, Dict, Optional, Tuple
+from time import perf_counter_ns
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -110,17 +118,114 @@ class CudaGraphs:
                 gc.enable()
 
 
+PHASES = ("draws", "inputs", "launch", "outputs", "capture", "read")
+
+
+class HostClock:
+    """Host nanoseconds inside the frame, by stage: each stage's span
+    (``MIPSFusionTorch._timed``; ``frame`` around ``process_frame``), the
+    part of it that spans nested in it took, and inside it the stage
+    programs' host phases (``PHASES``) and the counted device-to-host
+    reads (``manager.host_dict``). A phase or a read counts under the
+    innermost open span, or outside any under the stage it names.
+
+    Always on: a few ``perf_counter_ns`` calls and integer adds a span or
+    phase, into one list a stage. With ``log`` (between frames:
+    ``MIPSFusionTorch.trace_spans``) each span and phase is also a
+    ``torch.profiler`` ``record_function`` range: ``mf/<stage>``,
+    ``mf/<stage>/<phase>``, ``mf/read/<stage>``."""
+
+    # a stage's record: [span ns, spans, nested ns, the phases' ns in
+    # PHASES's order, reads, read bytes]
+    DRAWS, INPUTS, LAUNCH, OUTPUTS, CAPTURE, READ = range(3, 9)
+
+    def __init__(self):
+        self.records: Dict[str, List[int]] = {}
+        self.log = False
+        self._open: List[List[int]] = []     # the open spans' records
+        self._names: List[str] = []
+        self._ranges: List = []              # their ranges (None: no log)
+
+    def _record(self, stage: str) -> List[int]:
+        rec = self.records.get(stage)
+        if rec is None:
+            rec = self.records[stage] = [0] * 11
+        return rec
+
+    @staticmethod
+    def _range(name: str):
+        from torch.profiler import record_function
+        rng = record_function(name)
+        rng.__enter__()
+        return rng
+
+    def begin(self, stage: str) -> int:
+        """Open ``stage``'s span; gives the time ``end`` takes."""
+        self._open.append(self._record(stage))
+        self._names.append(stage)
+        self._ranges.append(self._range(f"mf/{stage}") if self.log
+                            else None)
+        return perf_counter_ns()
+
+    def end(self, t0: int) -> None:
+        """Close the innermost span, opened at ``t0``."""
+        dt = perf_counter_ns() - t0
+        rec = self._open.pop()
+        self._names.pop()
+        rng = self._ranges.pop()
+        rec[0] += dt
+        rec[1] += 1
+        if self._open:
+            self._open[-1][2] += dt
+        if rng is not None:
+            rng.__exit__(None, None, None)
+
+    def start(self, stage: str, phase: int) -> int:
+        """Start a phase (``HostClock.DRAWS`` ... ``READ``) of ``stage``'s
+        program; gives the time ``stop`` takes."""
+        if self.log:
+            name = self._names[-1] if self._names else stage
+            self._ranges.append(self._range(
+                f"mf/read/{name}" if phase == self.READ
+                else f"mf/{name}/{PHASES[phase - self.DRAWS]}"))
+        return perf_counter_ns()
+
+    def stop(self, stage: str, phase: int, t0: int, nbytes: int = 0) -> None:
+        """End the phase started at ``t0`` (a read: of ``nbytes``)."""
+        dt = perf_counter_ns() - t0
+        rec = self._open[-1] if self._open else self._record(stage)
+        rec[phase] += dt
+        if phase == self.READ:
+            rec[9] += 1
+            rec[10] += nbytes
+        if self.log:
+            self._ranges.pop().__exit__(None, None, None)
+
+    def stats(self, stage: str) -> Dict:
+        """``stage``'s spans, their host seconds and phases (``host_s``:
+        ``span``, ``nested`` and each of ``PHASES``), reads and read
+        bytes."""
+        rec = self.records.get(stage) or [0] * 11
+        host = {"span": rec[0] * 1e-9, "nested": rec[2] * 1e-9}
+        host.update((p, rec[3 + j] * 1e-9) for j, p in enumerate(PHASES))
+        return {"spans": rec[1], "host_s": host, "reads": rec[9],
+                "read_bytes": rec[10]}
+
+
 class Program:
     """One stage at one key: ``body(static inputs) -> outputs`` (dicts of
     tensors), run eagerly without ``graphs`` (the CPU), else warmed up,
     captured and replayed (see the module docstring). ``calls``,
-    ``replays``, ``capture_s`` and ``graph_bytes`` describe it."""
+    ``replays``, ``capture_s`` and ``graph_bytes`` describe it; ``clock``
+    counts its host phases."""
 
     def __init__(self, stage: str, key: Tuple, body: Callable[[Tensors],
                                                                Tensors],
-                 graphs: Optional[CudaGraphs] = None):
+                 graphs: Optional[CudaGraphs] = None,
+                 clock: Optional[HostClock] = None):
         self.stage, self.key, self.body = stage, key, body
         self.graphs = graphs
+        self.clock = clock if clock is not None else HostClock()
         self.template: Optional[_Template] = None
         self._static: Optional[Tensors] = None
         self._out: Optional[Tensors] = None
@@ -132,18 +237,32 @@ class Program:
 
     def __call__(self, inputs: Tensors) -> Tensors:
         self.calls += 1
+        clock, stage = self.clock, self.stage
+        t = clock.start(stage, clock.INPUTS)
         if self._static is None:
             self._static = {k: v.detach().clone() for k, v in inputs.items()}
         else:
             self._load(inputs)
+        clock.stop(stage, clock.INPUTS, t)
         if self.graphs is None:
-            return self.body(self._static)
+            t = clock.start(stage, clock.LAUNCH)
+            out = self.body(self._static)
+            clock.stop(stage, clock.LAUNCH, t)
+            return out
         if self._replay is None:
-            return self._warm_up_and_capture()
+            t = clock.start(stage, clock.CAPTURE)
+            out = self._warm_up_and_capture()
+            clock.stop(stage, clock.CAPTURE, t)
+            return out
+        t = clock.start(stage, clock.LAUNCH)
         self._replay()
         fc.add_launch_counts(self._delta)
         self.replays += 1
-        return {k: v.clone() for k, v in self._out.items()}
+        clock.stop(stage, clock.LAUNCH, t)
+        t = clock.start(stage, clock.OUTPUTS)
+        out = {k: v.clone() for k, v in self._out.items()}
+        clock.stop(stage, clock.OUTPUTS, t)
+        return out
 
     def _load(self, inputs: Tensors) -> None:
         static = self._static
@@ -267,6 +386,17 @@ def _state(s: Tensors, **registers) -> SlamState:
     return SlamState(**tables, **registers)
 
 
+def _track_drawn(draws: tracker.TrackDraws, fcfg: sr.FieldConfig,
+                 n_iter_go: int) -> Tensors:
+    """A track program's inputs of its draws: RO's pixels, GO's offsets."""
+    out = {}
+    if draws.pixels is not None:
+        out["pixels"] = draws.pixels
+    if fcfg.perturb and n_iter_go > 0:
+        out["go_u"] = torch.stack(draws.go)
+    return out
+
+
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
     """A host int as an int64 device scalar on like's device (a copy made
     before the replay, into the program's static buffer)."""
@@ -283,23 +413,31 @@ class StagePrograms:
             graphs = CudaGraphs(self.device)
         self.graphs = graphs
         self.programs: Dict[Tuple, Program] = {}
+        self.clock = HostClock()
 
     def _program(self, key: Tuple, make_body) -> Program:
         prog = self.programs.get(key)
         if prog is None:
             prog = self.programs[key] = Program(key[0], key, None,
-                                                self.graphs)
+                                                self.graphs, self.clock)
             prog.body = make_body(prog)
         return prog
 
     def stats(self) -> Dict:
         """Per stage: programs (graphs on the card), calls, replays,
-        capture seconds and the graphs' memory in bytes."""
+        capture seconds and the graphs' memory in bytes, by the programs'
+        stage; spans, host seconds by phase (``host_s``), reads and read
+        bytes (``HostClock.stats``), by the span's stage (``frame``: the
+        whole frame). Every entry has every field, 0 where it has none."""
         out: Dict[str, Dict] = {}
+        for stage in [p.stage for p in self.programs.values()] + list(
+                self.clock.records):
+            if stage not in out:
+                out[stage] = {"programs": 0, "calls": 0, "replays": 0,
+                              "capture_s": 0.0, "graph_bytes": 0,
+                              **self.clock.stats(stage)}
         for p in self.programs.values():
-            s = out.setdefault(p.stage, {"programs": 0, "calls": 0,
-                                         "replays": 0, "capture_s": 0.0,
-                                         "graph_bytes": 0})
+            s = out[p.stage]
             s["programs"] += 1
             s["calls"] += p.calls
             s["replays"] += p.replays
@@ -323,6 +461,9 @@ class StagePrograms:
         place as the function updates them."""
         if optim_cur is None:
             optim_cur = mcfg.optim_cur
+        stage = "ba" if include_current else "refine"
+        clock = self.clock
+        t = clock.start(stage, clock.DRAWS)
         K, R, _ = kf_rays.shape
         first_kf = torch.as_tensor(first_kf, device=kf_rays.device)
         w = mapper.kf_sampling_weights(
@@ -330,15 +471,17 @@ class StagePrograms:
             mcfg.pixels_cur if include_current else 0)
         draws, us = mapper.ba_draws(w, mcfg.iters, n_total,
                                     (R, cur_rays.shape[0]), fcfg, generator)
+        drawn = {name: torch.stack([d[j] for d in draws])
+                 for j, name in enumerate(("src", "ray_idx", "cur_idx"))}
+        if fcfg.perturb:
+            drawn["u"] = torch.stack(us)
+        clock.stop(stage, clock.DRAWS, t)
+        t = clock.start(stage, clock.INPUTS)
         inputs = {"kf_rays": kf_rays, "kf_mask": kf_mask,
                   "first_kf": first_kf, "last_kf": last_kf,
                   "kf_poses": kf_poses_local, "cur_rays": cur_rays,
-                  "cur_pose": cur_pose_local, **_consts_inputs(consts)}
-        for j, name in enumerate(("src", "ray_idx", "cur_idx")):
-            inputs[name] = torch.stack([d[j] for d in draws])
-        if fcfg.perturb:
-            inputs["u"] = torch.stack(us)
-        stage = "ba" if include_current else "refine"
+                  "cur_pose": cur_pose_local, **_consts_inputs(consts),
+                  **drawn}
         key = (stage, fcfg, mcfg, lw, n_total, bool(include_current),
                bool(optim_cur), _shapes(inputs), _param_shapes(field))
 
@@ -360,8 +503,11 @@ class StagePrograms:
 
         prog = self._program(key, make_body)
         prog.template.load(field, opt)
+        clock.stop(stage, clock.INPUTS, t)
         out = prog(inputs)
+        t = clock.start(stage, clock.OUTPUTS)
         prog.template.store(field, opt)
+        clock.stop(stage, clock.OUTPUTS, t)
         return mapper.BAResult(**out)
 
     # ----------------------------------------------------- first fits
@@ -379,16 +525,20 @@ class StagePrograms:
         if not 0 < chunk < n_iters:
             chunk = n_iters
         dev = frame_rays.device
+        clock = self.clock
         loss = None
         done = 0
         while done < n_iters:
             c = min(chunk, n_iters - done)
+            t = clock.start("fit", clock.DRAWS)
             idx, us = mapper.fit_draws(generator, frame_rays.shape[0],
                                        n_rays, c, fcfg, dev)
-            inputs = {"rays": frame_rays, "idx": torch.stack(idx),
-                      **_consts_inputs(consts)}
+            drawn = {"idx": torch.stack(idx)}
             if fcfg.perturb:
-                inputs["u"] = torch.stack(us)
+                drawn["u"] = torch.stack(us)
+            clock.stop("fit", clock.DRAWS, t)
+            t = clock.start("fit", clock.INPUTS)
+            inputs = {"rays": frame_rays, **_consts_inputs(consts), **drawn}
             key = ("fit", fcfg, mcfg, lw, n_rays, c, _shapes(inputs),
                    _param_shapes(field))
 
@@ -405,8 +555,11 @@ class StagePrograms:
 
             prog = self._program(key, make_body)
             prog.template.load(field, opt)
+            clock.stop("fit", clock.INPUTS, t)
             loss = prog(inputs)["loss"]
+            t = clock.start("fit", clock.OUTPUTS)
             prog.template.store(field, opt)
+            clock.stop("fit", clock.OUTPUTS, t)
             done += c
         return loss
 
@@ -436,9 +589,14 @@ class StagePrograms:
                 packed_frame, state, frame_idx, use_const_speed, lw,
                 n_iter_ro, n_iter_go, keyframe_every, loss_ewma, prev_loss,
                 dgcfg, gate, prev_rescued, polish_generator)
+        clock = self.clock
+        t = clock.start("track", clock.DRAWS)
         H, W = packed_frame.shape[:2]
         draws = tracker.track_draws(generator, H, W, rcfg, gcfg, fcfg,
                                     n_iter_go, packed_frame.device)
+        drawn = _track_drawn(draws, fcfg, n_iter_go)
+        clock.stop("track", clock.DRAWS, t)
+        t = clock.start("track", clock.INPUTS)
         inputs = {"packed": packed_frame, "pst": pst,
                   "prev": state.est_c2w[frame_idx - 1],
                   "prev_prev": state.est_c2w[max(frame_idx - 2, 0)],
@@ -446,10 +604,7 @@ class StagePrograms:
                   **_flatten(params, "p/")}
         if rcfg.escalate > 0.0 and prev_loss is not None:
             inputs["prev_loss"] = prev_loss
-        if draws.pixels is not None:
-            inputs["pixels"] = draws.pixels
-        if fcfg.perturb and n_iter_go > 0:
-            inputs["go_u"] = torch.stack(draws.go)
+        inputs.update(drawn)
         key = ("track", fcfg, rcfg, gcfg, lw, n_iter_ro, n_iter_go,
                bool(use_const_speed), _shapes(inputs))
 
@@ -470,9 +625,13 @@ class StagePrograms:
                         if v is not None}
             return body
 
-        out = self._program(key, make_body)(inputs)
+        prog = self._program(key, make_body)
+        clock.stop("track", clock.INPUTS, t)
+        out = prog(inputs)
+        t = clock.start("track", clock.OUTPUTS)
         res = tracker.TrackResult(**out)
         tracker.commit_pose(state, frame_idx, res.pose, keyframe_every)
+        clock.stop("track", clock.OUTPUTS, t)
         return res
 
     def _track_gated(self, params, fcfg, consts, rcfg, gcfg, pst, generator,
@@ -488,10 +647,15 @@ class StagePrograms:
         anchor is due, the commit and the anchor's refresh in that form
         (stage "track_commit"); else the commit eagerly, as with the gate
         off."""
+        clock = self.clock
+        t = clock.start("track_gate", clock.DRAWS)
         H, W = packed_frame.shape[:2]
         dev = packed_frame.device
         draws = tracker.track_draws(generator, H, W, rcfg, gcfg, fcfg,
                                     n_iter_go, dev)
+        drawn = _track_drawn(draws, fcfg, n_iter_go)
+        clock.stop("track_gate", clock.DRAWS, t)
+        t = clock.start("track_gate", clock.INPUTS)
         frame = _scalar(frame_idx, packed_frame)
         gate_in = {"gate/pts": gate.pts, "gate/normals": gate.normals,
                    "gate/valid": gate.valid, "gate/kf_frame": gate.kf_frame}
@@ -504,10 +668,7 @@ class StagePrograms:
             inputs["prev_loss"] = prev_loss
         if prev_rescued is not None:
             inputs["prev_rescued"] = prev_rescued
-        if draws.pixels is not None:
-            inputs["pixels"] = draws.pixels
-        if fcfg.perturb and n_iter_go > 0:
-            inputs["go_u"] = torch.stack(draws.go)
+        inputs.update(drawn)
         key = ("track_gate", fcfg, rcfg, gcfg, dgcfg, lw, n_iter_ro,
                n_iter_go, bool(use_const_speed), _shapes(inputs))
 
@@ -539,23 +700,30 @@ class StagePrograms:
                         "go/depth": go_rays[2], **reading._asdict()}
             return body
 
-        a = self._program(key, read_body)(inputs)
+        prog = self._program(key, read_body)
+        clock.stop("track_gate", clock.INPUTS, t)
+        a = prog(inputs)
         res = tracker.TrackResult(**{k: a[k] for k in (
             "pose", "loss", "loss_ewma", "accepted", "drift_res", "armed",
             "fired", "rescued", "ss_scale")})
         reading = tracker.GateReading(a["slip"], a["pose_icp"], a["armed"],
                                       a["flags"])
         # the host's one read a frame
-        fire_h, refresh = reading.flags.tolist()
+        fire_h, refresh = manager.host_dict(
+            {"flags": reading.flags}, clock, "track_gate")["flags"].tolist()
         rescue = ()
         if fire_h:
+            t = clock.start("track_rescue", clock.DRAWS)
             us = tracker.polish_draws(polish_generator, gcfg, fcfg, dgcfg,
                                       n_iter_go, dev)
+            polish = ({"polish_u": torch.stack(us)} if us and us[0] is not None
+                      else {})
+            clock.stop("track_rescue", clock.DRAWS, t)
+            t = clock.start("track_rescue", clock.INPUTS)
             b_in = {**common, "pose": a["pose"], "slip": a["slip"],
                     "pose_icp": a["pose_icp"], "go/dirs": a["go/dirs"],
-                    "go/rgb": a["go/rgb"], "go/depth": a["go/depth"]}
-            if us and us[0] is not None:
-                b_in["polish_u"] = torch.stack(us)
+                    "go/rgb": a["go/rgb"], "go/depth": a["go/depth"],
+                    **polish}
             b_key = ("track_rescue", fcfg, gcfg, dgcfg, lw, n_iter_go,
                      _shapes(b_in))
 
@@ -576,14 +744,19 @@ class StagePrograms:
                             "rescued": rescued}
                 return body
 
-            b = self._program(b_key, rescue_body)(b_in)
+            prog = self._program(b_key, rescue_body)
+            clock.stop("track_rescue", clock.INPUTS, t)
+            b = prog(b_in)
             rescue = (b["pose"], b["drift_res"], b["rescued"])
         res = tracker.gate_result(res, reading, gate, refresh, *rescue)
         if not (fire_h or refresh):
+            t = clock.start("track_gate", clock.OUTPUTS)
             tracker.commit_pose(state, frame_idx, res.pose, keyframe_every)
+            clock.stop("track_gate", clock.OUTPUTS, t)
             return res
         # (C): the commit and the anchor's refresh, in the form the read
         # chose
+        t = clock.start("track_commit", clock.INPUTS)
         c_in = {"pose": res.pose, "frame": frame, "packed": packed_frame,
                 "st/est_c2w": state.est_c2w,
                 "st/est_c2w_rel": state.est_c2w_rel,
@@ -608,11 +781,15 @@ class StagePrograms:
                         **{f"gate/{k}": v for k, v in new._asdict().items()}}
             return body
 
-        c = self._program(c_key, commit_body)(c_in)
+        prog = self._program(c_key, commit_body)
+        clock.stop("track_commit", clock.INPUTS, t)
+        c = prog(c_in)
+        t = clock.start("track_commit", clock.OUTPUTS)
         with torch.no_grad():
             torch._foreach_copy_(
                 [state.est_c2w, state.est_c2w_rel, state.keyframe_ref],
                 [c["est_c2w"], c["est_c2w_rel"], c["keyframe_ref"]])
+        clock.stop("track_commit", clock.OUTPUTS, t)
         return res._replace(gate=tracker.GateAnchor(
             c["gate/pts"], c["gate/normals"], c["gate/valid"],
             c["gate/kf_frame"]))
@@ -628,6 +805,8 @@ class StagePrograms:
         made once a key; the anchors are written to ``st`` after the
         replay."""
         from . import system
+        clock = self.clock
+        t = clock.start("pgo", clock.INPUTS)
         dev = st.kf_c2w.device
         inputs = {"kf_c2w": st.kf_c2w, "first_kf": st.localMLP_first_kf,
                   "adjacency": st.localMLP_adjacent,
@@ -648,9 +827,13 @@ class StagePrograms:
                     s["used"], s["key_w"], pairs=pairs)}
             return body
 
-        out = self._program(key, make_body)(inputs)
+        prog = self._program(key, make_body)
+        clock.stop("pgo", clock.INPUTS, t)
+        out = prog(inputs)
+        t = clock.start("pgo", clock.OUTPUTS)
         with torch.no_grad():
             st.kf_c2w.copy_(out["kf_c2w"])
+        clock.stop("pgo", clock.OUTPUTS, t)
 
     def switch_ba_update(self, st: SlamState, params: Dict,
                          kf_mask: torch.Tensor, frame_rays: torch.Tensor,
@@ -667,20 +850,24 @@ class StagePrograms:
         are device inputs, the draws made before the replay. Returns the
         last loss."""
         from . import system
+        clock = self.clock
+        t = clock.start("switch_ba", clock.DRAWS)
         K, R, _ = st.kf_rays.shape
         w = mapper.switch_ba_weights(kf_mask, n_total)
         draws, us = mapper.ba_draws(w, n_iters, n_total,
                                     (R, frame_rays.shape[0]), fcfg,
                                     generator)
+        drawn = {name: torch.stack([d[j] for d in draws])
+                 for j, name in enumerate(("src", "ray_idx", "ovlp_idx"))}
+        if fcfg.perturb:
+            drawn["u"] = torch.stack(us)
+        clock.stop("switch_ba", clock.DRAWS, t)
+        t = clock.start("switch_ba", clock.INPUTS)
         inputs = {**_state_inputs(st, _POSE_TABLES), "kf_mask": kf_mask,
                   "rays": frame_rays, "frame": _scalar(i, kf_mask),
                   "active": _scalar(st.active_submap_id, kf_mask),
                   "kf_frames": kf_frames, **_consts_inputs(consts),
-                  **_flatten(params, "p/")}
-        for j, name in enumerate(("src", "ray_idx", "ovlp_idx")):
-            inputs[name] = torch.stack([d[j] for d in draws])
-        if fcfg.perturb:
-            inputs["u"] = torch.stack(us)
+                  **_flatten(params, "p/"), **drawn}
         key = ("switch_ba", fcfg, lw, lr_rot, lr_trans, n_iters, n_total,
                pose_accum_step, _shapes(inputs))
 
@@ -696,9 +883,13 @@ class StagePrograms:
                 return {"est_c2w": est, "loss": loss}
             return body
 
-        out = self._program(key, make_body)(inputs)
+        prog = self._program(key, make_body)
+        clock.stop("switch_ba", clock.INPUTS, t)
+        out = prog(inputs)
+        t = clock.start("switch_ba", clock.OUTPUTS)
         with torch.no_grad():
             st.est_c2w.copy_(out["est_c2w"])
+        clock.stop("switch_ba", clock.OUTPUTS, t)
         return out["loss"]
 
     def predicates_fused(self, st: SlamState, pose_local: torch.Tensor,
@@ -710,6 +901,8 @@ class StagePrograms:
         JAX: ``manager._predicates_fused``), the active and the wait-loop
         submap device inputs; the caller's one batched host copy
         (``manager.host_dict``) follows the replay."""
+        clock = self.clock
+        t = clock.start("manager", clock.INPUTS)
         inputs = {**_state_inputs(st, ("kf_c2w", "localMLP_first_kf",
                                        "localMLP_info", "localMLP_max_len")),
                   "active": _scalar(st.active_submap_id, depth),
@@ -726,7 +919,9 @@ class StagePrograms:
                     s["min_cr_len"], near, far, s["rows"], s["cols"])
             return body
 
-        return self._program(key, make_body)(inputs)
+        prog = self._program(key, make_body)
+        clock.stop("manager", clock.INPUTS, t)
+        return prog(inputs)
 
     def overlap_verify_icp(self, st: SlamState, depth, rays_d, pose_world,
                            mo_id: int, active_id: int, rows, cols, K_mat,
@@ -743,6 +938,8 @@ class StagePrograms:
         and the keyframe count are device inputs. It runs only when the
         manager asks for a verification (unfused from the predicates)."""
         from . import system
+        clock = self.clock
+        t = clock.start("verify", clock.INPUTS)
         inputs = {**_state_inputs(st, _VERIFY_TABLES),
                   "n_kf": _scalar(st.n_kf, depth),
                   "mo": _scalar(mo_id, depth),
@@ -766,7 +963,9 @@ class StagePrograms:
                     keyframe_every, R, n_iters, rel_damping)
             return body
 
-        return self._program(key, make_body)(inputs)
+        prog = self._program(key, make_body)
+        clock.stop("verify", clock.INPUTS, t)
+        return prog(inputs)
 
 
 # the state tables the keyframe-pose extraction reads, and verification

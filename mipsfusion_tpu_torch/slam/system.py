@@ -59,6 +59,13 @@ captured on its first call at a key and replayed after; on the CPU the
 same objects run the stage eagerly. The paths over a mesh of several
 devices, the consistency BA, the mesher and the switch-back bookkeeping
 call the functions directly.
+
+Tracing: ``_timed`` counts each stage's calls, records a CUDA event pair
+around it on the card (``stage_ms``) and its host span on the programs'
+``HostClock`` (``programs.clock``), which also spans each frame
+(``frame``), times the programs' host phases and counts the
+device-to-host reads (``manager.host_dict``); ``programs.stats()`` gives
+them. ``trace_spans`` also emits the spans as ``torch.profiler`` ranges.
 """
 
 from __future__ import annotations
@@ -537,6 +544,7 @@ class MIPSFusionTorch:
         # the stage programs, by key (JAX: _get_ba_step, _get_refine_step
         # and the jit caches of track_frame and init_submap_fit)
         self.programs = StagePrograms(self.device)
+        self.clock = self.programs.clock
 
         self.use_manager = bool(config.get("use_manager", True))
         self.manager = manager_mod.Manager(
@@ -544,6 +552,7 @@ class MIPSFusionTorch:
             self.keyframe_every, self.device)
         self.manager.find_overlap_fn = self._find_overlapping_region
         self.manager.predicates_fn = self._manager_predicates
+        self.manager.clock = self.clock
         t = config["tracking"]
         self.switch_interval = t.get("switch_interval", 30)
         sw = t.get("switch", {})
@@ -689,16 +698,31 @@ class MIPSFusionTorch:
         return self._kf_rays_mirror[device]
 
     def _timed(self, stage: str, fn, *args):
+        """fn(*args) as a call of ``stage``: counted, its host span on the
+        clock (nested in the span open around it), on the card between a
+        CUDA event pair."""
         self.stage_calls[stage] += 1
-        if self.device.type != "cuda":
-            return fn(*args)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = fn(*args)
-        b.record()
-        self._events[stage].append((a, b))
-        return out
+        t0 = self.clock.begin(stage)
+        try:
+            if self.device.type != "cuda":
+                return fn(*args)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args)
+            b.record()
+            self._events[stage].append((a, b))
+            return out
+        finally:
+            self.clock.end(t0)
+
+    def trace_spans(self, on: bool = True) -> None:
+        """Also emit every host span, phase and read of the clock as a
+        ``torch.profiler`` range (``mf/<stage>``, ``mf/<stage>/<phase>``,
+        ``mf/read/<stage>``, ``mf/frame``), from the next frame on. Off by
+        default: a profiler's device timeline holds a copy of each range,
+        which a reading of its device operations would count."""
+        self.clock.log = bool(on)
 
     def stage_ms(self) -> Dict[str, float]:
         """Mean device-stream time per call of each stage (CUDA only)."""
@@ -1045,15 +1069,15 @@ class MIPSFusionTorch:
         rr_src, cc_src, sub_incl = self._icp_subs
         k = self.near_kf_num
         R = self.rays_per_kf
-        ver = manager_mod.host_dict(self._timed(
-            "verify", self.programs.overlap_verify_icp,
-            st, depth, rays_d, slam_state.to_like(pose_world, st.kf_c2w),
-            mo_id, active_id, rows, cols, self._K_mat, self.kf_frames,
-            self._last_tracked_frame, rr_src, cc_src, sub_incl,
-            self.sw_align_threshold, self.sw_min_trans, min_count,
-            k, edge, self.H, self.W, max(1, self.icp_dst_n // k),
-            self.sw_including_last, self.keyframe_every, R, 15,
-            SWITCH_ICP_DAMPING))
+        ver = self._timed("verify", lambda: manager_mod.host_dict(
+            self.programs.overlap_verify_icp(
+                st, depth, rays_d, slam_state.to_like(pose_world, st.kf_c2w),
+                mo_id, active_id, rows, cols, self._K_mat, self.kf_frames,
+                self._last_tracked_frame, rr_src, cc_src, sub_incl,
+                self.sw_align_threshold, self.sw_min_trans, min_count,
+                k, edge, self.H, self.W, max(1, self.icp_dst_n // k),
+                self.sw_including_last, self.keyframe_every, R, 15,
+                SWITCH_ICP_DAMPING), self.clock, "verify"))
         if int(ver["n_related"]) == 0 or \
                 int(ver["n_valid"]) < self.manager.cfg.min_ovlp_pts:
             return False, None
@@ -1197,7 +1221,8 @@ class MIPSFusionTorch:
         used = self._host_used
         if used < 2:
             return
-        kf_ref = st.keyframe_ref[:st.n_kf].cpu().numpy()
+        kf_ref = manager_mod.host_dict({"ref": st.keyframe_ref[:st.n_kf]},
+                                       self.clock, "consistency")["ref"]
         bind = self._host_kf_bind
         pairs = [(k, int(bind[k, 0]), int(bind[k, 1]))
                  for k in range(st.n_kf) if kf_ref[k] == -2 and bind[k, 1] >= 0]
@@ -1247,7 +1272,15 @@ class MIPSFusionTorch:
     # ------------------------------------------------------------------
 
     def process_frame(self, i: int):
-        """Track, map, refine, and decide on keyframes for frame i."""
+        """Track, map, refine, and decide on keyframes for frame i (the
+        clock's ``frame`` span)."""
+        t0 = self.clock.begin("frame")
+        try:
+            self._frame(i)
+        finally:
+            self.clock.end(t0)
+
+    def _frame(self, i: int):
         packed = self.dataset.packed(i)
         self._last_tracked_frame = i
         if i == 0:

@@ -6,6 +6,7 @@ frames writes its output tree and prints the ATE line; the run resumes
 from its frame-3 checkpoint; the offline mesher meshes its final
 checkpoint."""
 
+import json
 import os
 import re
 import subprocess
@@ -120,3 +121,20 @@ def test_cli_run_resume_and_offline_mesh(tmp_path):
     assert "submap 0:" in stdout
     v0, f0, _ = load_mesh_ply(str(exp / "mesh_0_final.ply"))
     assert len(v0) > 100 and len(f0) > 100
+
+
+def test_cli_profile_holds_the_spans(tmp_path):
+    """``--profile`` writes a Chrome trace that holds the system's host
+    spans (the frames, the stages and their program phases) and prints
+    the idle-by-span line (no device operations on the CPU)."""
+    yaml = tmp_path / "tiny.yaml"
+    yaml.write_text(TINY.format(root=ROOT, out=tmp_path / "out"))
+    trace = tmp_path / "trace.json"
+    stdout = _run("mipsfusion_tpu_torch", "--device", "cpu", "--config",
+                  str(yaml), "--n_frames", "4", "--profile", str(trace))
+    _ate(stdout)
+    assert "idle by span: no device operations in the trace" in stdout
+    with open(trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"mf/frame", "mf/track", "mf/track/launch", "mf/ba/draws",
+            "mf/read/manager"} <= names
