@@ -839,6 +839,29 @@ def kernel_shape_phase(shape_name: str, rows: dict):
             if not errs[k] <= TOL[name]:
                 _fail(f"{pre}{name} at N={n}: relative error {errs[k]:.3e}")
 
+    # K2 in both instances at point counts that are no multiple of its
+    # 64-point tile, and its packed weights against the plain packer
+    for n in (195_001, 63, 16, 1):
+        xn = test_points(n, 15, dev)
+        emb = fc.field_forward(xn, planes, dec, *meta, return_embed=True)[1]
+        g, _ = kink_free(torch.randn((10, n), generator=gen, device=dev)
+                         * 0.1, xn, emb, dec)
+        for wg in (True, False):
+            got = [t for t in _flat(fc.decoder_backward(
+                xn, g, emb, dec, 8, 5, weight_grads=wg)) if t is not None]
+            want = [t for t in _flat(fc.decoder_backward_plain(
+                xn, g, emb, dec, 8, 5, weight_grads=wg)) if t is not None]
+            e = max(_err(a, b)[1] for a, b in zip(got, want))
+            print(f"{pre}decoder_backward N={n} weight_grads={wg}: "
+                  f"max_rel={e:.3e}")
+            if not e <= TOL["decoder_backward"]:
+                _fail(f"{pre}decoder_backward at N={n} weight_grads={wg}: "
+                      f"relative error {e:.3e}")
+    if not torch.equal(fc.pack_k2_weights(dec, shape),
+                       fc.pack_k2_weights_plain(dec, shape)):
+        _fail(f"{pre}K2: the kernel's packed weights differ from the plain "
+              "packer's")
+
     # K2 without weight gradients (GO: pose gradients only) at the GO shape
     emb = fc.field_forward(xgo, planes, dec, *meta, return_embed=True)[1]
     g = torch.randn((10, xgo.shape[1]), generator=gen, device=dev) * 0.1

@@ -50,6 +50,7 @@ _SIGNATURES = {
                          + [_P, _I, _P, _P, _I, _P]),
     "mf_decoder_wt_size": [],
     "mf_decoder_grad_size": [],
+    "mf_decoder_pack_weights": [_P] * 10 + [_P, _P],
     "mf_decoder_backward": ([_P, _P, _P, _I] + [_P] * 10
                             + [_P, _P, _I, _P, _P, _P, _I, _P]),
     "mf_encode_forward": [_P] * 5 + [_I, _P] + [_I] * 4 + [_P],
@@ -151,6 +152,7 @@ def lib() -> ctypes.CDLL:
             sizes = {name: fn() for name, fn in fns.items()
                      if name.endswith("_size")}
             want = {"mf_decoder_grad_size": shape.grad_offsets[-1],
+                    "mf_decoder_wt_size": shape.k2_packed_size,
                     "mf_plane_backward_acc_size": shape.table_size,
                     "mf_encode_smem_size": shape.encode_smem}
             for name, n in want.items():
@@ -415,6 +417,26 @@ class FieldShape:
         """The shapes of w, b of every layer in ``decoder_shapes``' order
         (the order of the kernels' decoder arguments)."""
         return tuple(s for pair in self.decoder_shapes for s in pair)
+
+    @functools.cached_property
+    def k2_layers(self):
+        """K2's packed weights, layer by layer in the kernel's order
+        (``csrc/field.cuh`` K2Layout): (name, k-blocks of 8 input rows,
+        pairs of 8-column tiles). The forward's W0, W1, Ws0 (the embed's
+        rows padded to 8), Ws1; the backward's transposes Ws1^T, Ws0^T,
+        Wr[:64]^T, W1^T and [W0^T; Wr[64:]^T]."""
+        n_in = 64 + self.embed_dim
+        return (("w0", 7, 8), ("w1", 16, 8),
+                ("ws0", (64 + _round8(self.embed_dim)) // 8, 8),
+                ("ws1", 16, 1), ("ws1_t", 1, 8),
+                ("ws0_t", 16, (n_in + 15) // 16), ("wr_t", 1, 4),
+                ("w1_t", 16, 8), ("w0_wr_t", 17, 4))
+
+    @functools.cached_property
+    def k2_packed_size(self) -> int:
+        """Floats of K2's packed weights (``mf_decoder_wt_size``): a hi
+        and a lo part of every B fragment."""
+        return sum(kb * pairs * 256 for _, kb, pairs in self.k2_layers)
 
     @functools.cached_property
     def grad_offsets(self):

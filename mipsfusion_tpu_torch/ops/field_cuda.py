@@ -228,6 +228,92 @@ field_forward.sdf_launches_by_n = {}
 
 # ----------------------------------------------------------------- K2 ----
 
+# K2 reads its operands from a tile in shared memory, so its weights are
+# packed in B-fragment order with the input rows in their plain order, and
+# split once into their TF32 hi and lo parts: element (k-block kb, tile
+# pair p, lane, e) of a layer holds the hi (e < 4) or lo part of B[k][n]
+# with k = 8 kb + lane % 4 + 4 (e % 2), n = 8 (2p + e % 4 // 2) + lane // 4.
+
+_k2_packed_index = {}
+
+
+def k2_packed_index(shape) -> np.ndarray:
+    """For every float of K2's packed weights at a table shape (the layers
+    of ``shape.k2_layers``), the index of the weight whose hi or lo part
+    it holds in the concatenation of the decoder's flat parameters, or -1
+    for zero padding (csrc/field.cuh k2_pack_weights_kernel)."""
+    if shape.name not in _k2_packed_index:
+        sizes = [int(np.prod(s)) for s in shape.decoder_flat_shapes]
+        off = dict(zip(("w0", "b0", "w1", "b1", "wr", "br", "ws0", "bs0",
+                        "ws1", "bs1"), np.concatenate([[0],
+                                                       np.cumsum(sizes)])))
+        n_in, n_cls = 64 + shape.embed_dim, _build.N_CLASS
+        parts = []
+        for name, n_kb, pairs in shape.k2_layers:
+            q = np.arange(n_kb * pairs * 256)
+            e, lane, blk = q & 3, (q >> 3) & 31, q >> 8
+            k = 8 * (blk // pairs) + (lane & 3) + 4 * (e & 1)
+            n = 8 * (2 * (blk % pairs) + (e >> 1)) + (lane >> 2)
+            idx = {
+                "w0": np.where(k < _build.PE_DIM, off["w0"] + k * 128 + n, -1),
+                "w1": off["w1"] + k * 128 + n,
+                "ws0": np.where(k < n_in, off["ws0"] + k * 128 + n, -1),
+                "ws1": np.where(n < n_cls, off["ws1"] + k * n_cls + n, -1),
+                "ws1_t": np.where(k < n_cls, off["ws1"] + n * n_cls + k, -1),
+                "ws0_t": np.where(n < n_in, off["ws0"] + n * 128 + k, -1),
+                "wr_t": np.where(k < 3, off["wr"] + n * 3 + k, -1),
+                "w1_t": off["w1"] + n * 128 + k,
+                "w0_wr_t": np.where(
+                    n < _build.PE_DIM,
+                    np.where(k < 128, off["w0"] + n * 128 + k,
+                             np.where(k < 131, off["wr"] + (64 + n) * 3
+                                      + (k - 128), -1)), -1),
+            }[name]
+            parts.append(idx)
+        _k2_packed_index[shape.name] = np.concatenate(parts)
+    return _k2_packed_index[shape.name]
+
+
+def k2_lo_slots(shape) -> np.ndarray:
+    """Whether each float of K2's packed weights holds a lo part."""
+    return (np.arange(shape.k2_packed_size) & 4) > 0
+
+
+def tf32_split(v: torch.Tensor):
+    """(hi, lo) of float32 values as csrc/tf32.cuh split_tf32 forms them:
+    hi rounded to TF32 (to nearest, ties away from zero), lo = v - hi."""
+    bits = v.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, v - hi
+
+
+def pack_k2_weights_plain(dec: Tree, shape) -> torch.Tensor:
+    """The decoder's weights in K2's packed order at a table shape, as
+    csrc/field.cuh k2_pack_weights_kernel writes them."""
+    flat = torch.cat([t.reshape(-1) for t in _dec_flat(dec)])
+    idx = torch.as_tensor(k2_packed_index(shape), device=flat.device)
+    v = torch.where(idx >= 0, flat[idx.clamp(min=0)],
+                    torch.zeros((), dtype=flat.dtype, device=flat.device))
+    hi, lo = tf32_split(v)
+    lo_slot = torch.as_tensor(k2_lo_slots(shape), device=flat.device)
+    return torch.where(lo_slot, lo, hi)
+
+
+def pack_k2_weights(dec: Tree, shape) -> torch.Tensor:
+    """K2's packed weights: the plain packer for CPU tensors, the kernel's
+    own first step for CUDA tensors."""
+    w = dec[LAYERS[0]]["w"]
+    if w.device.type == "cpu":
+        return pack_k2_weights_plain(dec, shape)
+    packed = torch.empty((shape.size("decoder_wt_size"),), device=w.device)
+    with torch.cuda.device(w.device):
+        err = shape.fn("decoder_pack_weights")(*_dec_ptrs(dec, shape),
+                                               packed.data_ptr(),
+                                               _build.stream(w.device))
+    _build.check(err, "pack_k2_weights")
+    return packed
+
+
 def decoder_backward_plain(xT: torch.Tensor, g: torch.Tensor,
                            embed: torch.Tensor, dec: Tree, n_freq: int,
                            n_class: int, weight_grads: bool = True):
@@ -262,11 +348,13 @@ def decoder_backward(xT: torch.Tensor, g: torch.Tensor, embed: torch.Tensor,
              _build.ptr(embed, "embed", (shape.embed_dim, N)),
              N] + _dec_ptrs(dec, shape))
     dev = xT.device
+    # scratch for the weights in the kernel's fragment order
     wt = torch.empty((shape.size("decoder_wt_size"),), device=dev)
     total = shape.grad_offsets[-1]        # the library's, checked on load
-    # one partial sum per block of the persistent grid (a block per SM)
+    # one partial sum per block of the persistent grid (at most a block per
+    # SM), each written whole by its block
     splits = _build.sm_count(dev)
-    partials = (torch.zeros((splits, total), device=dev) if weight_grads
+    partials = (torch.empty((splits, total), device=dev) if weight_grads
                 else wt)
     grads = torch.empty((total,), device=dev) if weight_grads else wt
     d_x = torch.empty((3, N), device=dev)

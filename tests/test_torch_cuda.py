@@ -132,6 +132,64 @@ def test_k2_k3_give_the_same_bits_every_call(card):
         assert torch.equal(a[k], b[k])
 
 
+@pytest.mark.parametrize("points", ["snake", "go_rays"])
+def test_k2_gives_the_same_bits_every_call_in_both_instances(card, points):
+    """K2 with weight gradients at the scale profile's BA size (55,536
+    points: blocks walk 6 or 7 tiles) and without them on the GO's
+    ray-ordered points: bitwise equal results on two calls."""
+    dev, prm, META, E = card
+    x = (chip_smoke.test_points(55_536, 8, dev) if points == "snake"
+         else chip_smoke.ray_points(1000, 75, 9, dev))
+    planes, dec = prm["planes"], prm["decoder"]
+    _, emb = fc.field_forward(x, planes, dec, *META, return_embed=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    g = torch.randn((10, x.shape[1]), generator=gen, device=dev) * 0.1
+    for wg in (True, False):
+        a, b = ([t for t in chip_smoke._flat(fc.decoder_backward(
+            x, g, emb, dec, 8, 5, weight_grads=wg)) if t is not None]
+                for _ in range(2))
+        assert len(a) == (12 if wg else 2)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("n", [195_001, 63, 16, 1])
+def test_k2_matches_plain_at_ragged_sizes(card, n):
+    """K2 (64-point tiles, a persistent grid of at most one block an SM)
+    at point counts that are no multiple of a tile, with and without
+    weight gradients, against the plain backward: relative 1e-4, on a
+    cotangent that is zero near ReLU kinks (chip_smoke.kink_free)."""
+    dev, prm, META, E = card
+    x = chip_smoke.test_points(n, 9, dev)
+    planes, dec = prm["planes"], prm["decoder"]
+    _, emb = fc.field_forward(x, planes, dec, *META, return_embed=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    g = torch.randn((10, n), generator=gen, device=dev) * 0.1
+    g, _ = chip_smoke.kink_free(g, x, emb, dec)
+    for wg in (True, False):
+        got = fc.decoder_backward(x, g, emb, dec, 8, 5, weight_grads=wg)
+        want = fc.decoder_backward_plain(x, g, emb, dec, 8, 5,
+                                         weight_grads=wg)
+        assert (got[2] is None) == (not wg)
+        got, want = ([t for t in chip_smoke._flat(r) if t is not None]
+                     for r in (got, want))
+        assert len(got) == len(want) == (12 if wg else 2)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            assert chip_smoke._err(a, b)[1] < 1e-4
+
+
+def test_k2_packed_weights_match_plain_packer(card):
+    """K2's packer writes exactly what the plain packer (the one the CPU
+    tests hold to place every weight once a direction) writes."""
+    dev, prm, META, E = card
+    shape = _build.kernel_shape(prm["planes"], META[0])
+    assert shape.size("decoder_wt_size") == shape.k2_packed_size
+    assert torch.equal(fc.pack_k2_weights(prm["decoder"], shape),
+                       fc.pack_k2_weights_plain(prm["decoder"], shape))
+
+
 @pytest.mark.parametrize("n", [195_001, 63, 16, 1])
 def test_k1_k4_match_plain_at_ragged_sizes(card, n):
     """K1's three modes (persistent grid, 16-point tiles a warp) and K4
