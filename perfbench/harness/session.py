@@ -73,11 +73,14 @@ class CheckPlan:
 
 class Snapshots:
     """Copies of the checked stage calls' inputs and outputs (device
-    tensors, cloned on the device: no host read inside the window)."""
+    tensors, cloned on the device: no host read inside the window);
+    ``encoding`` is the reference's module of the field's encoding, which
+    names the embed leaves."""
 
-    def __init__(self, system, plan: CheckPlan):
+    def __init__(self, system, plan: CheckPlan, encoding):
         self.system = system
         self.plan = plan
+        self.encoding = encoding
         self.frame = -1
         self.active = False
         self.track: List[Dict] = []
@@ -123,7 +126,7 @@ class Snapshots:
             moments = {}
             for name, g in zip(("decoder", "embed"), opt.param_groups):
                 if all(p in opt.state for p in g["params"]):
-                    names = _leaf_names(field, name)
+                    names = _leaf_names(field, self.encoding, g["params"])
                     st = [opt.state[p] for p in g["params"]]
                     moments[name] = {
                         "count": st[0]["step"].clone(),
@@ -224,11 +227,15 @@ def _tables(st, names) -> Dict[str, torch.Tensor]:
     return {n: getattr(st, n).clone() for n in names}
 
 
-def _leaf_names(field, group: str) -> List[str]:
-    if group == "decoder":
-        return [f"{n}.{k}" for n, d in field.decoder.items()
-                for k in d.keys()]
-    return list(field.planes.keys())
+def _leaf_names(field, encoding, params) -> List[str]:
+    """The names of an optimizer group's ``params`` in the moments: a
+    decoder leaf's ``<layer>.<w|b>``, an embed leaf's as the encoding
+    names it in ``field.params(detach=True)`` (matched by storage)."""
+    tree = field.params(detach=True)
+    named = [(f"{n}.{k}", t) for n, d in tree["decoder"].items()
+             for k, t in d.items()] + encoding.embed_leaves(tree)
+    by_ptr = {t.data_ptr(): n for n, t in named}
+    return [by_ptr[p.data_ptr()] for p in params]
 
 
 def install_spans(system) -> None:

@@ -2,18 +2,26 @@
 point of each kernel kind, the points each stage call gives each kind
 (from the configuration's budgets), and the card's published peaks.
 
-The operations and bytes per point are a frozen copy of the port's
-``chip_smoke._flops_pt`` / ``_bytes`` (K0-K4 on a Triplane + CP field
-with the 8-band PE and the 5-class decoder), written over the
-configuration's widths. The peaks are fixed data: NVIDIA's H100 SXM
-figures, dense. Products run at the TF32 tensor-core rate, which no
+A kind's work is the decoder's share (its products and the bytes of the
+points, embeddings, outputs and weights; here, for every field) plus the
+encoding's (``counts/<enc>.py`` for the configuration's ``grid.enc``: its
+widths, and its share of each kind as other FLOPs, bytes a point and
+bytes a launch). A field whose encoding has no count is not counted.
+Both shares are a frozen copy of the port's ``chip_smoke._flops_pt`` /
+``_bytes`` (K0-K4 with the 8-band PE and the 5-class decoder), written
+over the configuration's widths. The peaks are fixed data: NVIDIA's H100
+SXM figures, dense. Products run at the TF32 tensor-core rate, which no
 float32-accurate implementation on this card exceeds, so the least time
 is a bound for any kernel that computes the same products.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import importlib
+import os
+from typing import Dict, List, Optional, Tuple
+
+from reference import encodings
 
 # NVIDIA H100 SXM, dense (data sheet)
 PEAK_PRODUCTS = 495e12     # FLOP/s, TF32 on the tensor cores
@@ -24,20 +32,29 @@ KINDS = ("field_forward", "field_forward_sdf", "decoder_backward",
          "decoder_backward_go", "plane_backward", "x_backward_add")
 
 
-def field_dims(cfg: Dict) -> Dict[str, int]:
-    """The widths the counts need, from a system configuration."""
-    g, dec = cfg["grid"], cfg["decoder"]
-    S = len(g["tri_resolutions"])
-    F = int(g["tri_features"])
-    C = int(g["cp_components"]) if g.get("cp_resolution") else 0
+COUNTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "counts")
+
+
+def count_of(name: str):
+    """The work count of encoding ``name`` (``counts/<name>.py``), or None
+    where the benchmark has none."""
+    if not os.path.exists(os.path.join(COUNTS, f"{name}.py")):
+        return None
+    return importlib.import_module(f"{__package__}.counts.{name}")
+
+
+def field_dims(cfg: Dict) -> Dict:
+    """The widths the counts need, from a system configuration: the
+    decoder's, and the encoding's from its count (with ``enc``, its
+    name)."""
+    enc = encodings.name_of(cfg)
+    dec = cfg["decoder"]
     pe = 3 + 3 * 2 * int(cfg["pos"]["n_bins"])
     hid = int(dec["hidden_dim"])
     geo = int(dec["geo_feat_dim"])
     rgb = int(dec["hidden_dim_color"])
-    return {"S": S, "F": F, "C": C, "E": S * F + C, "pe": pe, "hid": hid,
-            "geo": geo, "rgb": rgb, "branch": hid, "n_class": 5,
-            "res": [int(r) for r in g["tri_resolutions"]],
-            "cp_res": int(g.get("cp_resolution") or 0)}
+    return {**count_of(enc).dims(cfg), "enc": enc, "pe": pe, "hid": hid,
+            "geo": geo, "rgb": rgb, "branch": hid, "n_class": 5}
 
 
 def _layers(d: Dict) -> Dict[str, Tuple[int, int]]:
@@ -62,31 +79,28 @@ def flops_per_point(kind: str, d: Dict) -> Tuple[int, int]:
                 + macs["sdf1"])
     recompute = full - macs["rgb"]
     wgrad = n_weights(d)
-    S, C = d["S"], d["C"]
-    enc = 96 * S + 11 * C
-    return {"field_forward": (2 * full, enc),
-            "field_forward_sdf": (2 * sdf_only, enc),
-            "decoder_backward": (2 * (recompute + full + wgrad), 0),
-            "decoder_backward_go": (2 * (recompute + full), 0),
-            "plane_backward": (0, 60 * S + 21 * C),
-            "x_backward_add": (0, 120 * S + 20 * C + 3)}[kind]
+    products = {"field_forward": 2 * full,
+                "field_forward_sdf": 2 * sdf_only,
+                "decoder_backward": 2 * (recompute + full + wgrad),
+                "decoder_backward_go": 2 * (recompute + full),
+                "plane_backward": 0, "x_backward_add": 0}[kind]
+    return products, count_of(d["enc"]).work(kind, d)[0]
 
 
 def bytes_per_point(kind: str, d: Dict) -> Tuple[int, int]:
     """(bytes a point, bytes a launch): each input read once, each output
     written once."""
     E4 = 4 * d["E"]
-    table = 4 * (sum(3 * r * r * d["F"] for r in d["res"])
-                 + 3 * d["cp_res"] * d["C"])
-    cp = 4 * 3 * d["cp_res"] * d["C"]
     weights = 4 * n_weights(d)
     out = 4 * (5 + d["n_class"])
-    return {"field_forward": (12 + out + E4, table + weights),
-            "field_forward_sdf": (12 + 4, table + weights),
-            "decoder_backward": (12 + out + E4 + 12 + E4, 2 * weights),
-            "decoder_backward_go": (12 + out + E4 + 12 + E4, weights),
-            "plane_backward": (12 + E4, table + cp),
-            "x_backward_add": (12 + E4 + 12 + 12, table)}[kind]
+    pt, launch = {"field_forward": (12 + out + E4, weights),
+                  "field_forward_sdf": (12 + 4, weights),
+                  "decoder_backward": (12 + out + E4 + 12 + E4, 2 * weights),
+                  "decoder_backward_go": (12 + out + E4 + 12 + E4, weights),
+                  "plane_backward": (0, 0),
+                  "x_backward_add": (0, 0)}[kind]
+    _, enc_pt, enc_launch = count_of(d["enc"]).work(kind, d)
+    return pt + enc_pt, launch + enc_launch
 
 
 def samples_per_ray(training: Dict) -> int:
@@ -134,11 +148,15 @@ def stage_launches(cfg: Dict) -> Dict[str, List[Tuple[str, int, int]]]:
     }
 
 
-def least_times(cfg: Dict, calls: Dict[str, int]) -> Dict[str, float]:
+def least_times(cfg: Dict, calls: Dict[str, int]
+                ) -> Optional[Dict[str, float]]:
     """The least seconds the field work of ``calls`` (stage -> calls)
     needs on the card: ``arith`` (operations at peak), ``bytes``, and
     ``bound``, the sum over launches of the larger of the two, with the
-    operations and bytes counted."""
+    operations and bytes counted; None where the field's encoding has no
+    count."""
+    if count_of(encodings.name_of(cfg)) is None:
+        return None
     d = field_dims(cfg)
     table = stage_launches(cfg)
     arith = mem = bound = ops = nbytes = 0.0

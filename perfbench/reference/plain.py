@@ -1,27 +1,27 @@
 """The plain reference of the neural field and its training losses:
 float32 PyTorch, no kernel, no cache, no batching across calls.
 
-A Triplane + CP encoding (bilinear plane taps summed over the three axis
-pairs per scale, the product of three linear CP line taps), the 8-band
-tcnn-layout frequency encoding, and the decoder (trunk 51 -> 128 -> 64 +
-64; rgb 64 + 51 -> 3; sdf 64 + E -> 128 -> 5 classes, the sdf their
-expectation), the depth-guided + uniform z ladder, SDF-to-weight
-compositing and the free-space, truncation-band, EMD, colour and depth
-losses. It follows the MIPS-Fusion field as the JAX package states it,
-down to the encoding's gradient to the points: the tent derivative at the
-clamped coordinate, also outside the unit cube (the JAX kernel's rule,
-where plain autograd through the clamp would give 0). The code is a
-frozen copy of the port's plain (CPU) functions, so it imports nothing
-of the program. Quaternions are real-first.
+The field's encoding is the module that the configuration's ``grid.enc``
+names (``encodings/<enc>.py``: Triplane + CP, the hash grid); shared by
+every encoding are the 8-band tcnn-layout frequency encoding, the
+decoder (trunk 51 -> 128 -> 64 + 64; rgb 64 + 51 -> 3; sdf 64 + E -> 128
+-> 5 classes, the sdf their expectation), the depth-guided + uniform z
+ladder, SDF-to-weight compositing and the free-space, truncation-band,
+EMD, colour and depth losses. It follows the MIPS-Fusion field as the JAX
+package states it. The code is a frozen copy of the port's plain (CPU)
+functions, so it imports nothing of the program. Quaternions are
+real-first.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Hashable, Optional
 
 import torch
+
+from . import encodings
 
 LAYERS = ("trunk0", "trunk1", "rgb", "sdf0", "sdf1")
 N_CLASS = 5
@@ -136,7 +136,8 @@ def se3_log(T):
 
 @dataclasses.dataclass(frozen=True)
 class FieldCfg:
-    n_scales: int
+    enc: str
+    enc_spec: Hashable
     n_freq: int
     n_range_d: int
     range_d: float
@@ -154,8 +155,9 @@ class FieldCfg:
     def from_config(cfg: Dict, tracking: bool = False) -> "FieldCfg":
         t = cfg["training"]
         z = cfg["tracking"] if tracking else {}
+        enc = encodings.name_of(cfg)
         return FieldCfg(
-            n_scales=len(cfg["grid"]["tri_resolutions"]),
+            enc=enc, enc_spec=encodings.load(enc).spec(cfg),
             n_freq=int(cfg["pos"]["n_bins"]),
             n_range_d=int(z.get("n_range_d", t["n_range_d"])),
             range_d=float(t["range_d"]),
@@ -183,98 +185,6 @@ def frequency_encode(x, n_freq: int):
     return enc.reshape(x.shape[:-1] + (x.shape[-1] * n_freq * 2,))
 
 
-def _taps(u, R: int):
-    """(i0, i1, w, has_next) of linear interpolation on R rows at the
-    clamped coordinate; ``has_next`` is False where row i0 + 1 does not
-    exist (the upper clamp, where w is 0)."""
-    p = torch.clamp(u * (R - 1), 0.0, R - 1 - 1e-6)
-    f = torch.floor(p)
-    i0 = f.long()
-    return i0, torch.clamp(i0 + 1, max=R - 1), p - f, i0 + 1 <= R - 1
-
-
-def _plane(plane, u, v):
-    R = plane.shape[0]
-    u0, u1, wu, _ = _taps(u, R)
-    v0, v1, wv, _ = _taps(v, R)
-    wu, wv = wu[:, None], wv[:, None]
-    return ((1 - wu) * ((1 - wv) * plane[u0, v0] + wv * plane[u0, v1])
-            + wu * ((1 - wv) * plane[u1, v0] + wv * plane[u1, v1]))
-
-
-def _line(line, u):
-    i0, i1, w, _ = _taps(u, line.shape[0])
-    w = w[:, None]
-    return (1 - w) * line[i0] + w * line[i1]
-
-
-PLANE_AXES = ((0, 1), (0, 2), (1, 2))
-
-
-def _encode(planes: Dict, x, n_scales: int):
-    feats = []
-    for s in range(n_scales):
-        P = planes[f"s{s}"]
-        feats.append(sum(_plane(P[p], x[:, a], x[:, b])
-                         for p, (a, b) in enumerate(PLANE_AXES)))
-    cp = planes.get("cp")
-    if cp is not None:
-        feats.append(_line(cp[0], x[:, 0]) * _line(cp[1], x[:, 1])
-                     * _line(cp[2], x[:, 2]))
-    return torch.cat(feats, dim=-1)
-
-
-def _encode_dx(planes: Dict, x, n_scales: int):
-    """d embed / d x [N, E, 3] as the field states it: the tent
-    derivative (row i0 + 1 minus row i0, times R - 1) at the clamped
-    coordinate, also outside [0, 1], a missing row i0 + 1 reading 0."""
-    N = x.shape[0]
-    blocks = []
-    for s in range(n_scales):
-        P = planes[f"s{s}"]
-        R, F = P.shape[1], P.shape[-1]
-        J = torch.zeros((N, F, 3), dtype=x.dtype, device=x.device)
-        for p, (a, b) in enumerate(PLANE_AXES):
-            u0, u1, wu, hu = _taps(x[:, a], R)
-            v0, v1, wv, hv = _taps(x[:, b], R)
-            Pp = P[p]
-            hu, hv = hu[:, None].to(x.dtype), hv[:, None].to(x.dtype)
-            wu, wv = wu[:, None], wv[:, None]
-            p00, p01, p10, p11 = Pp[u0, v0], Pp[u0, v1], Pp[u1, v0], Pp[u1, v1]
-            J[:, :, a] += ((1 - wv) * (p10 * hu - p00)
-                           + wv * (p11 * hu - p01)) * (R - 1)
-            J[:, :, b] += ((1 - wu) * (p01 * hv - p00)
-                           + wu * (p11 * hv - p10)) * (R - 1)
-        blocks.append(J)
-    cp = planes.get("cp")
-    if cp is not None:
-        R = cp.shape[1]
-        f, df = [], []
-        for a in range(3):
-            i0, i1, w, has = _taps(x[:, a], R)
-            lo, hi = cp[a][i0], cp[a][i1]
-            f.append((1 - w)[:, None] * lo + w[:, None] * hi)
-            df.append((hi * has[:, None].to(x.dtype) - lo) * (R - 1))
-        blocks.append(torch.stack([df[0] * f[1] * f[2], f[0] * df[1] * f[2],
-                                   f[0] * f[1] * df[2]], dim=-1))
-    return torch.cat(blocks, dim=1)
-
-
-def triplane_encode(planes: Dict, x, n_scales: int):
-    """x [N, 3] in [0, 1]^3 -> [N, S F + C]: per scale the sum of the three
-    plane lookups, then the product of the three CP line lookups. The
-    gradient to x is ``_encode_dx``'s (the gradient to the planes the
-    interpolation weights')."""
-    xd = x.detach()
-    emb = _encode(planes, xd, n_scales)
-    if x.requires_grad:
-        with torch.no_grad():
-            J = _encode_dx({k: v.detach() for k, v in planes.items()}, xd,
-                           n_scales)
-        emb = emb + ((x - xd)[:, None, :] * J).sum(-1)
-    return emb
-
-
 def _dense(p, x):
     return x @ p["w"] + p["b"]
 
@@ -297,13 +207,14 @@ def field(params: Dict, xT, fc: FieldCfg, sdf_only: bool = False,
           chunk: int = 1 << 18):
     """The field at normalized points [3, N] -> [10, N] (or [1, N]),
     ``chunk`` points at a time so a large query fits beside its graph."""
+    enc = encodings.load(fc.enc)
     outs = []
     for xs in torch.split(xT / fc.norm_factor, chunk, dim=1):
         x = xs.T
         pe = torch.cat([x, frequency_encode(x, fc.n_freq)], dim=-1)
         outs.append(decoder(params["decoder"],
-                            triplane_encode(params["planes"], x,
-                                            fc.n_scales), pe, sdf_only).T)
+                            enc.encode(params, x, fc.enc_spec), pe,
+                            sdf_only).T)
     return torch.cat(outs, dim=1)
 
 

@@ -17,6 +17,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from . import encodings
 from .plain import (FieldCfg, draw_u, field, forward_losses,
                     matrix_to_quaternion, normalize_T, pose_inverse,
                     qt_to_matrix, quaternion_to_matrix, se3_exp, se3_log,
@@ -27,8 +28,8 @@ from .plain import (FieldCfg, draw_u, field, forward_losses,
 
 class MapAdam:
     """Adam as the map optimizer applies it: two groups (decoder with
-    weight decay 1e-6 added to the gradient, eps 1e-8; the planes and CP
-    lines, eps 1e-15), betas (0.9, 0.99), one float32 step count a group
+    weight decay 1e-6 added to the gradient, eps 1e-8; the encoding's
+    tables, eps 1e-15), betas (0.9, 0.99), one float32 step count a group
     and the bias corrections in float32."""
 
     def __init__(self, groups: List[Dict], betas=(0.9, 0.99)):
@@ -91,15 +92,17 @@ class MaskedAdam:
 def map_optimizer(params: Dict, cfg: Dict, moments: Optional[Dict] = None
                   ) -> MapAdam:
     """The map optimizer over the leaves of ``params`` (made leaves that
-    require a gradient), with the moments and counts of ``moments``
-    ({"decoder"/"embed": {"count", "m", "v"}} by leaf name) or fresh."""
+    require a gradient): the decoder, and as the embed group every leaf
+    outside it, as the configuration's encoding names them. The moments
+    and counts are those of ``moments`` ({"decoder"/"embed": {"count",
+    "m", "v"}} by leaf name) or fresh."""
     m = cfg["mapping"]
     dec = [params["decoder"][n][k] for n in params["decoder"]
            for k in params["decoder"][n]]
     dec_names = [f"{n}.{k}" for n in params["decoder"]
                  for k in params["decoder"][n]]
-    emb_names = list(params["planes"])
-    emb = [params["planes"][k] for k in emb_names]
+    emb_names, emb = zip(*encodings.load(encodings.name_of(cfg))
+                         .embed_leaves(params))
     groups = []
     for name, ps, names, lr, wd, eps in (
             ("decoder", dec, dec_names, m["lr_decoder"], 1e-6, 1e-8),

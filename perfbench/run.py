@@ -6,10 +6,13 @@
 
 A cell of ``BENCHMARK.json`` names a configuration (``perfbench/configs/
 <config>.json``) and a traffic mix (``perfbench/traffic/<traffic>.json``);
-each per-layer metric is read by ``perfbench/metrics/<metric>.py``. One
-run is one streamed SLAM session of ``mipsfusion_tpu_torch``: set-up
-(imports, the kernel library from the checkout's build directory, the
-lap rendered on the card, the system built, one warm lap), then the
+each per-layer metric is read by ``perfbench/metrics/<metric>.py``; the
+field's encoding (``grid.enc``) has its reference in
+``perfbench/reference/encodings/<enc>.py`` and may have a work count in
+``perfbench/harness/counts/<enc>.py``. One run is one streamed SLAM
+session of ``mipsfusion_tpu_torch``: set-up (imports, the kernel library
+from the checkout's build directory, the lap rendered on the card, the
+system built, one warm lap), then the
 window: frame after frame through ``MIPSFusionTorch.process_frame``, each
 frame's pose read to the host before the next is handed in, until
 ``--seconds`` have passed. With ``--trace 1`` the first ``trace_frames``
@@ -73,12 +76,18 @@ def load_json(path: str):
 
 
 def resolve(bench: dict, cell: str) -> dict:
-    """The cell's workload entry, configuration, traffic and metrics, each
-    found by its name."""
+    """The cell's workload entry, configuration, traffic, metrics and
+    field encoding, each found by its name."""
+    from reference import encodings
     wl = next((w for w in bench["workloads"] if w["name"] == cell), None)
     if wl is None:
         fail(2, f"no workload {cell!r} in BENCHMARK.json")
     conf = load_json(os.path.join(HERE, "configs", f"{wl['config']}.json"))
+    enc = encodings.name_of(conf["config"])
+    if not os.path.exists(encodings.file_of(enc)):
+        fail(2, f"missing file of the benchmark: "
+             f"{os.path.relpath(encodings.file_of(enc), ROOT)} (the "
+             f"reference of the encoding {enc!r})")
     traffic = load_json(os.path.join(HERE, "traffic",
                                      f"{wl['traffic']}.json"))
 
@@ -97,7 +106,8 @@ def resolve(bench: dict, cell: str) -> dict:
         spec.loader.exec_module(mod)
         readers[m["name"]] = mod.read
     return {"workload": wl, "config": conf, "traffic": traffic,
-            "end_to_end": e2e, "per_layer": layer, "readers": readers}
+            "encoding": enc, "end_to_end": e2e, "per_layer": layer,
+            "readers": readers}
 
 
 def reader_path(metric: str, cell: str):
@@ -171,12 +181,14 @@ def open_session(cell: dict, seed: int, dev):
     """The cell's session on ``dev`` (the lap rendered, the system built),
     with the correctness check's snapshots installed for the window."""
     from harness.session import CheckPlan, Session, Snapshots
+    from reference import encodings
     conf, traffic = cell["config"], cell["traffic"]
     cfg = conf["config"]
     sess = Session(cfg, traffic, seed, dev)
     sess.snapshots = Snapshots(sess.system, CheckPlan(
         seed, int(traffic["warm_frames"]), int(traffic["check_span"]),
-        int(cfg["mapping"]["map_every"]), conf["check"]))
+        int(cfg["mapping"]["map_every"]), conf["check"]),
+        encodings.load(cell["encoding"]))
     return sess
 
 
@@ -233,7 +245,7 @@ def execute(cell: dict, seed: int, seconds: float, trace: bool, dev,
         return None
 
     metrics = {}
-    ctx = {"cfg": cfg, "traffic": traffic,
+    ctx = {"cfg": cfg, "traffic": traffic, "encoding": cell["encoding"],
            "cell": cell["workload"]["name"], "window": win}
     if win is not None:
         frames = win["frames"]
@@ -263,6 +275,7 @@ def execute(cell: dict, seed: int, seconds: float, trace: bool, dev,
             ctx["trace"] = tr.reduce(
                 traced["profile"], {n.lstrip("_") for n in SPAN_METHODS},
                 traced["t1"] - traced["t0"])
+            ctx["calls"] = calls
             ctx["work"] = work.least_times(cfg, calls)
             traced["profile"] = None
         if trace:
@@ -336,6 +349,7 @@ def main(argv=None) -> int:
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = p.parse_args(argv)
     t_start = process_start()
+    sys.path[:0] = [ROOT, HERE]
     bench = load_json(os.path.join(ROOT, "BENCHMARK.json"))
     cell = resolve(bench, args.workload)
     chips = int(cell["workload"]["chips"])
@@ -349,7 +363,6 @@ def main(argv=None) -> int:
     if have < chips:
         fail(3, f"the cell needs {chips} CUDA device(s); this machine has "
              f"{have}")
-    sys.path[:0] = [ROOT, HERE]
     try:
         from mipsfusion_tpu_torch.ops import _build
     except ImportError as e:

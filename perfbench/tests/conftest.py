@@ -8,6 +8,8 @@ import copy
 import importlib.util
 import json
 import os
+import shutil
+import subprocess
 import sys
 
 import pytest
@@ -62,6 +64,56 @@ def tiny_cell(name: str = "flag-full.outback-laps") -> dict:
 # each loop-closure kind of checked call and the number it gives
 LOOP_KINDS = {"pgo": "pgo_anchor_mm", "verify": "icp_pose_mm",
               "switch_ba": "switch_ba_pose_mm"}
+
+
+# a cell that only new files add to a copy of the benchmark: a HashGrid
+# field on flag-full's budgets, its table at 2^14 rows a level (3 dense
+# levels, 13 hashed)
+HASH_CELL = "hash-test.hash-mix"
+
+
+def copy_bench(dst) -> dict:
+    """Copy perfbench/ (no outputs) and BENCHMARK.json into ``dst``;
+    returns the copied benchmark and the bytes of every copied file."""
+    shutil.copytree(PB, dst / "perfbench",
+                    ignore=shutil.ignore_patterns("out", "__pycache__"))
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), dst)
+    return {p: p.read_bytes() for p in dst.rglob("*") if p.is_file()}
+
+
+def add_hash_cell(dst, bench: dict, enc: str = "HashGrid") -> str:
+    """Add ``HASH_CELL`` to the copy in ``dst`` as new files: its
+    configuration (flag-full.json with ``grid.enc`` ``enc``), its mix (a
+    copy of outback-laps.json) and its entries in ``bench``, written to
+    ``dst/BENCHMARK.json``."""
+    conf_name, mix = HASH_CELL.split(".")
+    pb = dst / "perfbench"
+    conf = json.loads((pb / "configs" / "flag-full.json").read_text())
+    conf["name"] = conf_name
+    conf["config"]["grid"].update(enc=enc, hash_size=14)
+    (pb / "configs" / f"{conf_name}.json").write_text(json.dumps(conf))
+    shutil.copy(pb / "traffic" / "outback-laps.json",
+                pb / "traffic" / f"{mix}.json")
+    bench["configs"].append({"name": conf_name, "source": "x",
+                             "file": f"perfbench/configs/{conf_name}.json",
+                             "reduced": [], "why": "x"})
+    bench["workloads"].append({"name": HASH_CELL, "config": conf_name,
+                               "traffic": mix, "chips": 1, "why": "x"})
+    (dst / "BENCHMARK.json").write_text(json.dumps(bench))
+    return HASH_CELL
+
+
+def run_copied_cell(dst, cell: str, fault: str = "") -> dict:
+    """The result line of ``cell`` of the copy in ``dst``, run on the CPU
+    at ``tiny_cell``'s sizes by the copy's own files (``cell_on_cpu.py``),
+    with the fault of test_bench_check.py named ``fault`` applied."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, str(dst / "perfbench" / "tests" / "cell_on_cpu.py"),
+         cell, fault], capture_output=True, text=True, timeout=600,
+        cwd=dst, env=env)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 @pytest.fixture(scope="session")

@@ -11,7 +11,8 @@ import time
 import pytest
 import torch
 
-from conftest import LOOP_KINDS, load_bench, tiny_cell
+from conftest import (HASH_CELL, LOOP_KINDS, add_hash_cell, copy_bench,
+                      load_bench, run_copied_cell, tiny_cell)
 
 SEED = 2_147_483_917
 FRAMES = 16
@@ -100,6 +101,18 @@ def test_fault_is_not_correct(run_module, monkeypatch, fault):
     assert number in over, rows
 
 
+def test_hash_cell_fault_is_not_correct(tmp_path):
+    """The HashGrid cell that only new files add to a copy of the
+    benchmark (``conftest.add_hash_cell``), with its local BA returning
+    its state unchanged: not correct, by the map's change."""
+    copy_bench(tmp_path)
+    add_hash_cell(tmp_path, load_bench())
+    res = run_copied_cell(tmp_path, HASH_CELL, "_unchanged_ba")
+    rows = res["checks"]
+    assert not res["correct"]
+    assert rows["ba_change_gap"]["value"] > rows["ba_change_gap"]["limit"]
+
+
 def _shifted(T, i=None):
     """T moved 5 mm along x (row i of a pose table, or the pose)."""
     shift = torch.zeros_like(T)
@@ -182,6 +195,22 @@ def test_loop_closure_check(run_module, monkeypatch, fault):
     ok, _ = check.verdict(res["numbers"], {n: limits[n] for n in nums},
                           {k: 1 for k in LOOP_KINDS}, res["calls"])
     assert ok == (fault is None)
+
+
+def test_ba_pose_number_is_the_median_over_calls():
+    """One ill-conditioned call does not decide ``ba_pose_median_mm``;
+    half the calls off do; no call gives no number."""
+    from harness import check
+    limits = tiny_cell()["config"]["limits"]
+    lim = limits["ba_pose_median_mm"]
+
+    def rows(*v):
+        return [{"pose_median_mm": x} for x in v]
+    sound = [1e-4 * lim] * 7
+    assert check._median(rows(*sound, 3.0 * lim), "pose_median_mm") <= lim
+    assert check._median(rows(*sound[:4], *[3.0 * lim] * 4),
+                         "pose_median_mm") > lim
+    assert check._median([], "pose_median_mm") is None
 
 
 def test_missing_number_is_not_correct():

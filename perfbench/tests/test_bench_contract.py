@@ -7,13 +7,13 @@ import ast
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 
 import pytest
 
-from conftest import PB, ROOT
+from conftest import (HASH_CELL, PB, ROOT, add_hash_cell, copy_bench,
+                      run_copied_cell)
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -69,10 +69,11 @@ def test_names_and_units():
 def test_new_cell_needs_only_new_files(tmp_path, run_module):
     """A dummy configuration, mix and metric added as new files to a copy
     of perfbench/ and a cell that uses them resolve with no edit to a file
-    that is there."""
+    that is there; and a cell of a field of the other encoding (HashGrid),
+    added the same way, runs on the CPU to ``correct``."""
+    before = copy_bench(tmp_path)
+    del before[tmp_path / "BENCHMARK.json"]
     dst = tmp_path / "perfbench"
-    shutil.copytree(PB, dst, ignore=shutil.ignore_patterns("out",
-                                                           "__pycache__"))
     b = bench()
     with open(dst / "configs" / "flag-full.json") as f:
         conf = json.load(f)
@@ -100,10 +101,9 @@ def test_new_cell_needs_only_new_files(tmp_path, run_module):
                            "source": "program_counter", "layer": "x",
                            "moves": "tracked_fps",
                            "workloads": ["dummy-conf.dummy-mix"]})
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
-    before = {p: p.read_bytes() for p in dst.rglob("*") if p.is_file()
-              and "dummy" not in p.name}
+    add_hash_cell(tmp_path, b)
     code = ("import sys, json, importlib.util; "
+            f"sys.path.insert(0, {str(dst)!r}); "
             f"spec = importlib.util.spec_from_file_location('r', "
             f"{str(dst / 'run.py')!r}); m = importlib.util.module_from_spec"
             "(spec); spec.loader.exec_module(m); "
@@ -117,7 +117,26 @@ def test_new_cell_needs_only_new_files(tmp_path, run_module):
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["123", "dummy-conf", "42.0", "7.5"]
+    res = run_copied_cell(tmp_path, HASH_CELL)
+    assert res["correct"], res["checks"]
+    assert res["checks"]["ba_calls_checked"]["value"] >= 2
     assert all(p.read_bytes() == v for p, v in before.items())
+
+
+def test_missing_encoding_is_refused_before_setup(tmp_path):
+    """A configuration whose grid.enc has no reference module: run.py
+    exits 2 while it resolves the cell, naming the file it looked for,
+    and prints no result."""
+    copy_bench(tmp_path)
+    add_hash_cell(tmp_path, bench(), enc="NoSuchEncoding")
+    out = subprocess.run(
+        [sys.executable, "perfbench/run.py", "--workload", HASH_CELL,
+         "--seed", "1", "--seconds", "1", "--trace", "0"],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path)
+    assert out.returncode == 2, out.stderr
+    assert "missing file of the benchmark: " \
+        "perfbench/reference/encodings/NoSuchEncoding.py" in out.stderr
+    assert out.stdout.strip() == ""
 
 
 def _imports(path):
@@ -130,7 +149,8 @@ def _imports(path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("sub", ["harness", "reference", "metrics", "."])
+@pytest.mark.parametrize("sub", ["harness", "harness/counts", "reference",
+                                 "reference/encodings", "metrics", "."])
 def test_no_jax_and_a_reference_of_its_own(sub):
     """No module under perfbench/ imports jax or the JAX package (top-level
     names compared whole: the port's name begins with the JAX package's),
@@ -142,7 +162,7 @@ def test_no_jax_and_a_reference_of_its_own(sub):
     for f in files:
         tops = set(_imports(f))
         assert not tops & {"jax", "jaxlib", "flax", "mipsfusion_tpu"}, f
-        if sub == "reference":
+        if sub.startswith("reference"):
             assert "mipsfusion_tpu_torch" not in tops, f
             assert not tops & {"harness"}, f
 
@@ -165,9 +185,7 @@ def test_refuses_without_a_card():
 def test_refuses_without_the_port(tmp_path):
     """A directory holding only BENCHMARK.json and perfbench/ gives no
     result."""
-    shutil.copytree(PB, tmp_path / "perfbench",
-                    ignore=shutil.ignore_patterns("out", "__pycache__"))
-    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), tmp_path)
+    copy_bench(tmp_path)
     out = subprocess.run(
         [sys.executable, "perfbench/run.py", "--workload",
          "flag-full.outback-laps", "--seed", "1", "--seconds", "1",

@@ -92,8 +92,9 @@ def test_ate_aligns_a_rigid_motion():
     assert 0.0 < ate_rmse(gt, est) < 0.1
 
 
-SMALL = {"grid": {"tri_resolutions": [4], "tri_features": 2,
-                  "cp_resolution": 5, "cp_components": 3},
+SMALL = {"grid": {"enc": "Triplane", "tri_resolutions": [4],
+                  "tri_features": 2, "cp_resolution": 5,
+                  "cp_components": 3},
          "pos": {"n_bins": 1},
          "decoder": {"hidden_dim": 4, "geo_feat_dim": 2,
                      "hidden_dim_color": 3}}
