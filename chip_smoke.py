@@ -276,10 +276,13 @@ def phase_build(check_hmma: bool = True):
     if hmma is None:
         print("sass: cuobjdump not found, HMMA count not taken")
         return build_s
-    # per shape of the table: K2's two instances, K1's three
+    # per shape of the table: K2's two instances, K1's three (two at a
+    # hash shape, whose embed is given)
     n_shapes = len(_build.SHAPES)
+    n_hash = sum(1 for s in _build.SHAPES.values() if s.hash_levels)
     for what, key, n_min in (("K2", "decoder_bwd", 2 * n_shapes),
-                             ("K1", "field_forward_kernel", 3 * n_shapes)):
+                             ("K1", "field_forward_kernel",
+                              3 * n_shapes - n_hash)):
         found = {k: v for k, v in hmma.items() if key in k}
         print(f"sass HMMA instructions per {what} kernel: "
               + json.dumps(found))
@@ -337,25 +340,39 @@ def _time_idle_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
-def field_params(shape_name: str, seed: int, device):
-    """Field params (a tree) at a shape of the kernels' table, made from a
-    seed, with features brought to O(1) (planes init at 1e-4 would make
-    every comparison trivially small)."""
-    import torch
-    from mipsfusion_tpu_torch.models.scene_rep import FieldConfig, init_field
+def field_config(shape_name: str, log2_rows: int = 19):
+    """The ``FieldConfig`` of a shape of the kernels' table: the flagship
+    orbit's, with the shape's planes and CP lines, or at the hash shape
+    its hash grid of 2^log2_rows rows a level."""
+    from mipsfusion_tpu_torch.models.scene_rep import FieldConfig
     from mipsfusion_tpu_torch.config import FLAGSHIP_ORBIT
     from mipsfusion_tpu_torch.ops import _build
     shape = next(s for s in _build.SHAPES.values() if s.name == shape_name)
-    cfg = {**FLAGSHIP_ORBIT, "grid": {
-        **FLAGSHIP_ORBIT["grid"], "tri_resolutions": list(shape.resolutions),
-        "cp_resolution": shape.cp_resolution,
-        "cp_components": shape.cp_components}}
-    fcfg = FieldConfig.from_dict(cfg)
+    if shape.hash_levels:
+        grid = {**FLAGSHIP_ORBIT["grid"], "enc": "HashGrid",
+                "hash_size": log2_rows}
+    else:
+        grid = {**FLAGSHIP_ORBIT["grid"],
+                "tri_resolutions": list(shape.resolutions),
+                "cp_resolution": shape.cp_resolution,
+                "cp_components": shape.cp_components}
+    return FieldConfig.from_dict({**FLAGSHIP_ORBIT, "grid": grid})
+
+
+def field_params(shape_name: str, seed: int, device, log2_rows: int = 19):
+    """Field params (a tree) at a shape of the kernels' table, made from a
+    seed, with features brought to O(1) (planes and the hash table init at
+    1e-4 would make every comparison trivially small)."""
+    import torch
+    from mipsfusion_tpu_torch.models.scene_rep import init_field
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    p = init_field(fcfg, g, device)
-    p["planes"] = {k: v * (1e4 if k.startswith("s") else 4.0)
-                   for k, v in p["planes"].items()}
+    p = init_field(field_config(shape_name, log2_rows), g, device)
+    if "hash" in p:
+        p["hash"] = p["hash"] * 1e4
+    else:
+        p["planes"] = {k: v * (1e4 if k.startswith("s") else 4.0)
+                       for k, v in p["planes"].items()}
     return p
 
 
@@ -484,7 +501,15 @@ def kink_free(g, x, embed, dec, margin: float = 1e-4):
 # cotangent that is zero near ReLU kinks (kink_free).
 TOL = {"encode_forward": 2e-5, "field_forward": 2e-5,
        "decoder_backward": 1e-4, "plane_backward": 1e-4,
-       "x_backward": 1e-4}
+       "x_backward": 1e-4,
+       # H1 blends the 8 corners in the plain version's order, each product
+       # and sum rounded: only the plain version's own reduction order
+       # (PyTorch's sum over the corner axis) can differ in the last bits
+       "hash_forward": 2e-5,
+       # H2 is held to the plain table gradient bit for bit (int64 sums)
+       "hash_table_backward": 0.0,
+       # H3 sums 8 corners x 16 levels in an order of its own
+       "hash_x_backward": 1e-4}
 
 REPLACES = {
     "encode_forward":
@@ -497,6 +522,12 @@ REPLACES = {
         "mipsfusion_tpu/ops/triplane_pallas.py:325 _fused_backward_plane",
     "x_backward":
         "mipsfusion_tpu/ops/triplane_pallas.py:453 _fused_backward_x",
+    # the hash grid has no TPU kernel (XLA operations in the JAX package)
+    "hash_forward": "none: mipsfusion_tpu/ops/encoding.py hash_encode",
+    "hash_table_backward": "none: mipsfusion_tpu/ops/encoding.py "
+                           "hash_encode's VJP",
+    "hash_x_backward": "none: mipsfusion_tpu/ops/encoding.py "
+                       "hash_encode's VJP",
 }
 # the kernels' bodies (templates over the field shape); csrc/shape.cu,
 # compiled once per shape, instantiates them
@@ -506,6 +537,9 @@ SOURCE = {
     "decoder_backward": "mipsfusion_tpu_torch/csrc/field.cuh",
     "plane_backward": "mipsfusion_tpu_torch/csrc/triplane.cuh",
     "x_backward": "mipsfusion_tpu_torch/csrc/triplane.cuh",
+    "hash_forward": "mipsfusion_tpu_torch/csrc/hashgrid.cuh",
+    "hash_table_backward": "mipsfusion_tpu_torch/csrc/hashgrid.cuh",
+    "hash_x_backward": "mipsfusion_tpu_torch/csrc/hashgrid.cuh",
 }
 
 
@@ -527,8 +561,30 @@ PEAK_BYTES = 3.35e12
 # forward recompute without the rgb layer (37,888) + data backward (the
 # forward's 38,233) + weight gradients (one per parameter, 38,625); K3 ~
 # 12 S taps x 5 + C x 21 = 960; K4 ~ 3 S planes x 40 + C x 20 = 1,040.
+#
+# The hash grid's kernels, per point and level: the corner coordinates and
+# axis weights 12 (x s + 0.5, the fraction, 1 - f on 3 axes), the 8 corner
+# weights 16; H1 blends 8 corners x 2 features (32: 60), H2 forms and
+# scales each share (32: 60), H3 forms g . feature at 8 corners (24), each
+# axis's two sides of 4 weighted terms (72) and the level's d_x (9): 117,
+# plus d_x_pe's add a point. Bytes: x in, the embed (or its cotangent) in
+# or out, d_x_pe and d_x; H1 and H3 read once the rows a launch can
+# address (res^3 on a dense level, all 2^19 on a hashed one), H2 writes
+# the whole gradient once, at the hash-full cell's 2^19 rows.
+HASH_ROWS = 1 << 19
+
+
+def _hash_rows_read(levels: int) -> int:
+    """Rows of the 2^19-row table that the encode can address, over
+    ``levels`` levels of base.yaml's grid (16 -> 256)."""
+    from mipsfusion_tpu_torch.ops.encoding import HashGridConfig
+    res = HashGridConfig(n_levels=levels).level_resolutions()
+    return int(np.minimum(res.astype(np.int64) ** 3, HASH_ROWS).sum())
+
+
 def _flops_pt(kind: str, shape):
     S, C, E = shape.n_scales, shape.cp_components, shape.embed_dim
+    L = shape.hash_levels
     sdf_in = (64 + E) * 128
     full = 6_528 + 16_384 + sdf_in + 640 + 345
     recompute = full - 345
@@ -542,7 +598,10 @@ def _flops_pt(kind: str, shape):
             "decoder_backward_go": (2 * (recompute + full), 0),
             "plane_backward": (0, 60 * S + 21 * C),
             "x_backward": (0, 120 * S + 20 * C),
-            "x_backward_add": (0, 120 * S + 20 * C + 3)}[kind]
+            "x_backward_add": (0, 120 * S + 20 * C + 3),
+            "hash_forward": (0, 60 * L),
+            "hash_table_backward": (0, 60 * L),
+            "hash_x_backward": (0, 117 * L + 3)}[kind]
 
 
 # bytes per point (each input read once, each output written once) and
@@ -553,6 +612,9 @@ def _bytes(kind: str, shape):
                  + 3 * shape.cp_resolution * shape.cp_components)
     cp = 4 * 3 * shape.cp_resolution * shape.cp_components
     weights = 4 * shape.grad_offsets[-1]
+    hash_table = (4 * _hash_rows_read(shape.hash_levels) * 2
+                  if shape.hash_levels else 0)
+    hash_grad = 4 * shape.hash_levels * HASH_ROWS * 2
     return {"encode_forward": (12 + E4, table),
             "field_forward": (12 + 40 + E4, table + weights),
             "field_forward_noembed": (12 + 40, table + weights),
@@ -561,7 +623,10 @@ def _bytes(kind: str, shape):
             "decoder_backward_go": (12 + 40 + E4 + 12 + E4, weights),
             "plane_backward": (12 + E4, table + cp),
             "x_backward": (12 + E4 + 12, table),
-            "x_backward_add": (12 + E4 + 12 + 12, table)}[kind]
+            "x_backward_add": (12 + E4 + 12 + 12, table),
+            "hash_forward": (12 + E4, hash_table),
+            "hash_table_backward": (12 + E4, hash_grad),
+            "hash_x_backward": (12 + E4 + 12 + 12, hash_table)}[kind]
 
 
 def bound(kind: str, n: int, shape=None):
@@ -613,6 +678,7 @@ def phase_kernels():
     rows = {}
     for name in KERNEL_SHAPES:
         kernel_shape_phase(name, rows)
+    hash_kernel_phase(rows)
     kernel_digests()
     torch.cuda.synchronize()
     return rows
@@ -925,6 +991,255 @@ def kernel_digests():
               f"x_backward {sha(k4)} encode_forward {sha(k0)}")
 
 
+# The hash shape's labels: the hash-full cell's loop sizes (flag-full's
+# budgets): BA 2600 rays x 75 samples, GO 1000 x 75, RO 2000 particles x
+# 384 px a call.
+HASH_SIZES = {"ba": 195_000, "ba_rays": (2600, 75), "go_rays": (1000, 75),
+              "ro": 768_000}
+
+
+def hash_kernel_phase(rows: dict):
+    """H1-H3 and K1 / K2 at the hash shape (16 levels x 2, 2^19 rows)
+    against their plain versions at the hash-full cell's sizes, labels
+    "hash:<label>": H1 and H3 within their tolerances, H2 equal to the
+    plain table gradient bit for bit (the same int64 sums), each kernel
+    twice for the same bits, H1 / H3 also at N = 195,001 and 63."""
+    import torch
+    from mipsfusion_tpu_torch.models.decoder import decoder_apply
+    from mipsfusion_tpu_torch.ops import _build
+    from mipsfusion_tpu_torch.ops import encoding as enc
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    from mipsfusion_tpu_torch.ops import hash_cuda as hc
+    dev = torch.device("cuda")
+    shape = _build.hash_shape(16, 2)
+    cfg = field_config("hash")
+    grid = cfg.grid
+    p = field_params("hash", 0, dev)
+    table, dec = p["hash"], p["decoder"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    print(f"kernel phase at shape hash: HashGrid {grid.n_levels} x "
+          f"{grid.n_features} levels, 2^{grid.log2_hashmap_size} rows, "
+          f"{grid.n_dense} dense levels, embed {shape.embed_dim}")
+
+    def record(name, label, errs, fn, plain_ms, n, kind=None):
+        record_label(rows, name, "hash:" + label, errs, fn, plain_ms, n,
+                     kind or name, shape)
+
+    def plain_embed(xx):
+        return enc._hash_forward(table, xx.T, grid).T
+
+    def plain_out(xx, emb, sdf_only=False):
+        pe = torch.cat([xx.T, enc.frequency_encode(xx.T, 8)], dim=-1)
+        return decoder_apply(dec, emb.T, pe, 5, sdf_only=sdf_only).T
+
+    labels = {"": test_points(HASH_SIZES["ba"], 1, dev),
+              "@rays": ray_points(*HASH_SIZES["ba_rays"], 8, dev)}
+    for sfx, xx in labels.items():
+        n = xx.shape[1]
+        emb = hc.hash_forward(xx, table, grid)
+        same(f"hash:hash_forward{sfx}", emb, hc.hash_forward(xx, table,
+                                                             grid))
+        record("hash_forward", "hash_forward" + sfx,
+               {"embed": _err(emb, plain_embed(xx))},
+               lambda: hc.hash_forward(xx, table, grid),
+               _time_ms(lambda: plain_embed(xx)), n)
+        d_embed = torch.randn((shape.embed_dim, n), generator=gen,
+                              device=dev) * 0.1
+        d_tab = hc.hash_table_backward(xx, d_embed, table, grid)
+        want = enc._hash_backward(table, xx.T, d_embed.T, grid, False,
+                                  True)[1]
+        if not torch.equal(d_tab, want):
+            _fail(f"hash:hash_table_backward{sfx}: differs from the plain "
+                  f"table gradient in {int((d_tab != want).sum())} of "
+                  f"{want.numel()} values (max abs "
+                  f"{float((d_tab - want).abs().max()):.3e})")
+        print(f"hash:hash_table_backward{sfx:5s} == the plain table "
+              "gradient bit for bit")
+        same(f"hash:hash_table_backward{sfx}", d_tab,
+             hc.hash_table_backward(xx, d_embed, table, grid))
+        record("hash_table_backward", "hash_table_backward" + sfx,
+               {"d_table": _err(d_tab, want)},
+               lambda: hc.hash_table_backward(xx, d_embed, table, grid),
+               _time_ms(lambda: enc._hash_backward(
+                   table, xx.T, d_embed.T, grid, False, True)), n)
+        del d_tab, want
+        d_x_pe = torch.randn((3, n), generator=gen, device=dev)
+        dx = hc.hash_x_backward(xx, d_embed, table, grid, d_x_pe)
+        want = d_x_pe + enc._hash_backward(table, xx.T, d_embed.T, grid,
+                                           True, False)[0].T
+        same(f"hash:hash_x_backward{sfx}", dx,
+             hc.hash_x_backward(xx, d_embed, table, grid, d_x_pe))
+        record("hash_x_backward", "hash_x_backward" + sfx,
+               {"d_x": _err(dx, want)},
+               lambda: hc.hash_x_backward(xx, d_embed, table, grid, d_x_pe),
+               _time_ms(lambda: enc._hash_backward(
+                   table, xx.T, d_embed.T, grid, True, False)), n)
+        # K1 on the embed, K2 with and without weight gradients
+        out = fc.field_forward_embed(xx, emb, dec, 8, 5)
+        same(f"hash:field_forward{sfx}", out,
+             fc.field_forward_embed(xx, emb, dec, 8, 5))
+        record("field_forward", "field_forward" + sfx,
+               {"out": _err(out, plain_out(xx, emb))},
+               lambda: fc.field_forward_embed(xx, emb, dec, 8, 5),
+               _time_ms(lambda: plain_out(xx, emb)), n)
+        g = torch.randn((10, n), generator=gen, device=dev) * 0.1
+        g, _ = kink_free(g, xx, emb, dec)
+        got = fc.decoder_backward(xx, g, emb, dec, 8, 5)
+        ref = fc.decoder_backward_plain(xx, g, emb, dec, 8, 5)
+        same(f"hash:decoder_backward{sfx}", got,
+             fc.decoder_backward(xx, g, emb, dec, 8, 5))
+        errs = {"d_x": _err(got[0], ref[0]), "d_embed": _err(got[1], ref[1])}
+        errs.update({f"{k}.{w}": _err(got[2][k][w], ref[2][k][w])
+                     for k in ref[2] for w in ("w", "b")})
+        record("decoder_backward", "decoder_backward" + sfx, errs,
+               lambda: fc.decoder_backward(xx, g, emb, dec, 8, 5),
+               _time_ms(lambda: fc.decoder_backward_plain(xx, g, emb, dec,
+                                                          8, 5)), n)
+        del got, ref, g, d_embed, emb, out, dx, want, d_x_pe
+    # GO: K2 without weight gradients, H3 alone
+    xg = ray_points(*HASH_SIZES["go_rays"], 9, dev)
+    emb = hc.hash_forward(xg, table, grid)
+    g = torch.randn((10, xg.shape[1]), generator=gen, device=dev) * 0.1
+    g, _ = kink_free(g, xg, emb, dec)
+    got = fc.decoder_backward(xg, g, emb, dec, 8, 5, weight_grads=False)
+    ref = fc.decoder_backward_plain(xg, g, emb, dec, 8, 5,
+                                    weight_grads=False)
+    record("decoder_backward", "decoder_backward_go@rays",
+           {"d_x": _err(got[0], ref[0]), "d_embed": _err(got[1], ref[1])},
+           lambda: fc.decoder_backward(xg, g, emb, dec, 8, 5,
+                                       weight_grads=False),
+           _time_ms(lambda: fc.decoder_backward_plain(
+               xg, g, emb, dec, 8, 5, weight_grads=False)),
+           xg.shape[1], "decoder_backward_go")
+    # RO: H1 and K1 sdf-only at 768,000 points
+    xr = test_points(HASH_SIZES["ro"], 13, dev)
+    emb = hc.hash_forward(xr, table, grid)
+    record("hash_forward", "hash_forward@768k",
+           {"embed": _err(emb, plain_embed(xr))},
+           lambda: hc.hash_forward(xr, table, grid),
+           _time_ms(lambda: plain_embed(xr)), xr.shape[1])
+    sdf = fc.field_forward_embed(xr, emb, dec, 8, 5, sdf_only=True)
+    record("field_forward", "field_forward_sdf@768k",
+           {"sdf": _err(sdf, plain_out(xr, emb, sdf_only=True))},
+           lambda: fc.field_forward_embed(xr, emb, dec, 8, 5,
+                                          sdf_only=True),
+           _time_ms(lambda: plain_out(xr, emb, sdf_only=True)),
+           xr.shape[1], "field_forward_sdf")
+    del xr, emb, sdf
+    # point counts that are no multiple of a block
+    for n in (195_001, 63):
+        xn = test_points(n, 12, dev)
+        d_embed = torch.randn((shape.embed_dim, n), generator=gen,
+                              device=dev) * 0.1
+        e1 = _err(hc.hash_forward(xn, table, grid), plain_embed(xn))[1]
+        e3 = _err(hc.hash_x_backward(xn, d_embed, table, grid),
+                  enc._hash_backward(table, xn.T, d_embed.T, grid, True,
+                                     False)[0].T)[1]
+        eq2 = torch.equal(hc.hash_table_backward(xn, d_embed, table, grid),
+                          enc._hash_backward(table, xn.T, d_embed.T, grid,
+                                             False, True)[1])
+        print(f"hash N={n}: hash_forward max_rel={e1:.3e} hash_x_backward "
+              f"max_rel={e3:.3e} hash_table_backward bits equal {eq2}")
+        if not (e1 <= TOL["hash_forward"] and e3 <= TOL["hash_x_backward"]
+                and eq2):
+            _fail(f"hash kernels at N={n}")
+    torch.cuda.synchronize()
+
+
+def hash_autograd():
+    """HashQueryT's gradients (H1, K1; K2, H2, H3) against autograd of the
+    plain hash field, on interior points, and the gradient-free query."""
+    import torch
+    from mipsfusion_tpu_torch.models import scene_rep as sr
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    dev = torch.device("cuda")
+    cfg = field_config("hash")
+    p = field_params("hash", 5, dev)
+    x = test_points(60_000, 6, dev, inside_only=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    G = torch.randn((10, x.shape[1]), generator=gen, device=dev) * 0.1
+    emb = fc.hash_forward(x, p["hash"], cfg.grid)
+    G, _ = kink_free(G, x, emb, p["decoder"])
+
+    def grads(run_plain: bool):
+        leaves = {"hash": p["hash"].detach().clone().requires_grad_(True),
+                  "decoder": {n: {k: t.detach().clone().requires_grad_(True)
+                                  for k, t in d.items()}
+                              for n, d in p["decoder"].items()}}
+        xx = x.clone().requires_grad_(True)
+        if run_plain:
+            out = sr.hash_field(leaves, xx.T, cfg).T
+        else:
+            out = fc.hash_query_T(leaves, xx, cfg)
+        (out * G).sum().backward()
+        flat = [leaves["hash"].grad] + [t.grad for d in
+                                        leaves["decoder"].values()
+                                        for t in d.values()]
+        return flat, xx.grad, out.detach()
+
+    gk, xk, ok = grads(False)
+    gp, xp, op = grads(True)
+    worst = max(_err(a, b)[1] for a, b in zip(gk, gp))
+    wx, wo = _err(xk, xp)[1], _err(ok, op)[1]
+    print(f"autograd hash: out max_rel={wo:.3e} params max_rel={worst:.3e} "
+          f"x max_rel={wx:.3e} tol_rel=1e-4")
+    sdf = fc.hash_field_forward(x, p["hash"], p["decoder"], cfg,
+                                sdf_only=True)
+    ws = _err(sdf[0], op[3])[1]
+    print(f"hash gradient-free query: sdf max_rel={ws:.3e} tol_rel=2e-5")
+    if not (worst <= 1e-4 and wx <= 1e-4 and wo <= 2e-5 and ws <= 2e-5):
+        _fail("HashQueryT disagrees with the plain hash field")
+
+
+def triplane_digests() -> dict:
+    """{shape: {label: SHA-256 prefix}} of K1's outputs (with the embed at
+    the BA size, sdf only at the RO size) and K2's (with weight gradients
+    at the BA size, without at the GO shape) at every Triplane shape of
+    the table, on inputs made from fixed seeds (the embed from the plain
+    forward, the cotangents from a seeded generator). Two trees whose K1
+    and K2 are the same give the same digests on the same card."""
+    import hashlib
+    import torch
+    from mipsfusion_tpu_torch.ops import field_cuda as fc
+    dev = torch.device("cuda")
+
+    def sha(t):
+        h = hashlib.sha256()
+        for u in _flat(t):
+            if u is not None:
+                h.update(u.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    out = {}
+    for name in ("flag", "cp", "fcl"):
+        sz = KERNEL_SHAPES[name]
+        p = field_params(name, 0, dev)
+        planes, dec = p["planes"], p["decoder"]
+        ns = len([k for k in planes if k.startswith("s")])
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        x = test_points(sz["ba"], 1, dev)
+        xg = ray_points(*sz["go_rays"], 9, dev)
+        xr = test_points(sz["ro"], 13, dev)
+        d = {"field_forward": sha(fc.field_forward(
+                 x, planes, dec, ns, 8, 5, return_embed=True)),
+             "field_forward_sdf": sha(fc.field_forward(
+                 xr, planes, dec, ns, 8, 5, sdf_only=True))}
+        for label, xx, wg in (("decoder_backward", x, True),
+                              ("decoder_backward_go", xg, False)):
+            emb = fc.field_forward_plain(xx, planes, dec, ns, 8, 5,
+                                         return_embed=True)[1].contiguous()
+            g = torch.randn((10, xx.shape[1]), generator=gen,
+                            device=dev) * 0.1
+            d[label] = sha(fc.decoder_backward(xx, g, emb, dec, 8, 5,
+                                               weight_grads=wg))
+        out[name] = d
+        print(f"triplane digest {name}: {json.dumps(d)}")
+    return out
+
+
 def phase_autograd():
     """At every shape of the table: FieldQueryT gradients (kernels) vs the
     same Function on the plain path, on interior points (where the
@@ -933,6 +1248,7 @@ def phase_autograd():
     for name, sz in KERNEL_SHAPES.items():
         if "shape" not in sz:          # once per field shape
             autograd_shape(name)
+    hash_autograd()
 
 
 def autograd_shape(shape_name: str):
@@ -1680,17 +1996,25 @@ def _mesh_and_resume(slam, cfg, ds, voxel: float, label: str):
     return counts, e, m
 
 
+# the kernels only the Triplane field launches, and those every hash-grid
+# run launches (H2 with BA, H3 with GO)
+TRIPLANE_ONLY = ("encode_forward", "plane_backward", "x_backward")
+HASH_KERNELS = ("hash_forward", "hash_table_backward", "hash_x_backward")
+HASH_PATH = ("field_forward", "decoder_backward") + HASH_KERNELS
+
+
 def phase_hash(n_frames: int = HASH_FRAMES):
     """The reference paper's own field: phase 5's flagship orbit (45
     frames, the same budgets, no manager) with grid.enc HashGrid at
     base.yaml's full width (16 levels x 2 features, 2^19 rows, base 16 to
-    256), plain torch (no kernel: the JAX package has none for it), float32
-    with TF32 off. Holds the hash backward at BA's 195,000 points to the
-    same bits on two calls, the run (ATE < HASH_ATE, 1 submap, K0-K4 never
-    launched) to the same poses and field bits over the whole run twice,
-    its mesh at 3 cm (accuracy of the vertices inside the room <
-    HASH_INSIDE_ACCURACY) and the same mesh after a checkpoint and resume.
-    Returns the run's launch counts (all 0)."""
+    256) through H1-H3 and K1 / K2 at the hash shape, TF32 off for
+    PyTorch's products. Holds the plain hash backward at BA's 195,000
+    points to the same bits on two calls, the run (ATE < HASH_ATE, 1
+    submap, the hash kernels launched, K0, K3 and K4 never) to the same
+    poses and field bits over the whole run twice, its mesh at 3 cm
+    (accuracy of the vertices inside the room < HASH_INSIDE_ACCURACY) and
+    the same mesh after a checkpoint and resume. Returns the run's launch
+    counts."""
     import torch
     from mipsfusion_tpu_torch.config import flagship_orbit
     from mipsfusion_tpu_torch.datasets.synthetic import SyntheticDataset
@@ -1746,8 +2070,10 @@ def phase_hash(n_frames: int = HASH_FRAMES):
           f"{counts}")
     print("hash orbit stage ms (CUDA events, mean per call): "
           + json.dumps({k: round(v, 3) for k, v in slam.stage_ms().items()}))
-    if any(counts.values()):
-        _fail(f"hash orbit launched a Triplane kernel: {counts}")
+    if (any(counts[k] for k in TRIPLANE_ONLY)
+            or not all(counts[k] for k in HASH_PATH)):
+        _fail(f"hash orbit: a Triplane kernel launched or a hash-path "
+              f"kernel did not: {counts}")
     if not np.isfinite([float(v) for v in slam.track_losses]).all():
         _fail("hash orbit: non-finite tracking loss")
     if not ate < HASH_ATE:
@@ -1762,8 +2088,10 @@ def phase_hash(n_frames: int = HASH_FRAMES):
           again.field.params(detach=True)))
     del again
     mesh_counts, e, _ = _mesh_and_resume(slam, cfg, ds, 0.03, "hash mesh")
-    if any(mesh_counts.values()):
-        _fail(f"hash mesh launched a Triplane kernel: {mesh_counts}")
+    if (any(mesh_counts[k] for k in TRIPLANE_ONLY)
+            or not mesh_counts["hash_forward"]):
+        _fail(f"hash mesh: a Triplane kernel launched or H1 did not: "
+              f"{mesh_counts}")
     if not e["inside_accuracy_m"] < HASH_INSIDE_ACCURACY:
         _fail(f"hash mesh: accuracy inside the room "
               f"{e['inside_accuracy_m']:.4f} m >= {HASH_INSIDE_ACCURACY} m")
@@ -3115,6 +3443,11 @@ def main(argv=None):
     ap.add_argument("--stress-only", action="store_true",
                     help="phases 1-2, then only phase 11 (the stress runs "
                          "and the injected slips)")
+    ap.add_argument("--hash-kernels-only", action="store_true",
+                    help="phases 1-2, then only the hash shape's kernels "
+                         "against their plain versions (H1-H3, K1 / K2), "
+                         "its autograd path and the Triplane shapes' K1 / "
+                         "K2 digests")
     ap.add_argument("--hash-only", action="store_true",
                     help="phases 1-2, then only phase 12 (the HashGrid "
                          "orbit and its mesh)")
@@ -3136,6 +3469,15 @@ def main(argv=None):
     if args.outback_seeds is not None:
         outback_seeds([int(s) for s in args.outback_seeds.split(",")],
                       args.outback_spawn)
+        return 0
+    if args.hash_kernels_only:
+        phase_device()
+        phase_build()
+        rows = {}
+        hash_kernel_phase(rows)
+        hash_autograd()
+        print(json.dumps({"triplane_digests": triplane_digests()}))
+        print(json.dumps({"hash_kernels": rows}))
         return 0
     if (args.scale_only or args.stress_only or args.hash_only
             or args.consistency_only or args.sharded_only or args.files_only
@@ -3214,12 +3556,16 @@ def main(argv=None):
     kernels = []
     for name, r in rows.items():
         on_path = name in SLAM_KERNELS
+        on_hash = name in HASH_KERNELS
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"],
             "replaces": r["replaces"],
             # the main path's launches (the first outback run that closed
-            # a loop); K0's count is from the kernel and autograd phases
-            "launches": counts[name] if on_path else k0_launches,
+            # a loop); H1-H3's on the path they serve (the HashGrid orbit,
+            # whose phase fails where one of them reads 0); K0's count is
+            # from the kernel and autograd phases
+            "launches": (counts[name] if on_path else hash_counts[name]
+                         if on_hash else k0_launches),
             "launches_outback": counts[name],
             "launches_outback_by_seed": {s: c[name]
                                          for s, c in by_seed.items()},
@@ -3234,8 +3580,8 @@ def main(argv=None):
             "launches_scale": scale_counts[name],
             "launches_stress": stress_counts[name],
             "launches_stress_off": stress_off[name],
-            # the HashGrid orbit (plain torch: none of these kernels) and
-            # the consistency stages of the consistency outback (K2's
+            # the HashGrid orbit (K1 and K2 at the hash shape; no K0, K3,
+            # K4) and the consistency stages of the consistency outback (K2's
             # launches there are all without weight gradients)
             "launches_hash": hash_counts[name],
             "launches_consistency": cons_stage[name],
@@ -3246,7 +3592,7 @@ def main(argv=None):
             # the FastCaMo-large run through the file reader (phase 15:
             # the kernels at the fcl shape)
             "launches_files": files_counts[name],
-            "slam_caller": on_path,
+            "slam_caller": on_path or on_hash,
             "max_abs_err": r["max_abs_err"],
             # "ms", "plain_ms" and the bound at the first shape measured
             # (the flagship's BA batch, 195,000 uniform points); every

@@ -2,7 +2,9 @@
 //
 // The kernels are templates over a compile-time field shape (FieldShape:
 // NS plane scales of F = 4 features, a CP term of RCP lines x CCP
-// channels). shape.cu is compiled once per shape of the table in
+// channels; or HashShape: the embed of a multiresolution hash grid, which
+// the hash kernels write and K1 reads). shape.cu is compiled once per
+// shape of the table in
 // ops/_build.py, with that shape's -D flags; it instantiates every
 // kernel for it and defines the C entry points with the shape's name as
 // suffix. What no config changes stays fixed: 8-band PE (51 inputs with
@@ -40,6 +42,7 @@ constexpr int OUT_ROWS = 5 + NCLS;        // rgb 3, sdf, entropy, prob 5
 // then one per group of 4 CP channels.
 template <int NS_, int R0_, int R1_, int R2_, int RCP_, int CCP_>
 struct FieldShape {
+  static constexpr bool EMBED_IN = false;           // K1 computes the embed
   static constexpr int NS = NS_;
   static constexpr int R0 = R0_, R1 = R1_, R2 = R2_;
   static constexpr int RCP = RCP_, CCP = CCP_;
@@ -53,6 +56,20 @@ struct FieldShape {
   static_assert(NS == 2 || NS == 3, "2 or 3 plane scales");
   static_assert(CCP % 4 == 0 && NCPG <= 10, "CP groups of 4, at most 10");
   static_assert(NS == 3 || R2 == 0, "R2 is unused with 2 scales");
+};
+
+// A field shape whose embed a multiresolution hash grid gives: L levels of
+// 2 features, E = 2 L rows (level l in rows 2 l, 2 l + 1), read by K1 in
+// parts of 4 rows (two levels each) from the embed the hash kernels wrote
+// (hashgrid.cuh). K2 depends on the shape only through E.
+template <int L_>
+struct HashShape {
+  static constexpr bool EMBED_IN = true;            // K1 reads a given embed
+  static constexpr int L = L_;
+  static constexpr int EMB = 2 * L;
+  static constexpr int EMB_PAD = (EMB + 7) / 8 * 8;
+  static constexpr int NPART = EMB / 4;
+  static_assert(EMB % 4 == 0 && L <= 16, "whole parts, at most 16 levels");
 };
 
 // A kernel's raised dynamic shared-memory limit (cudaFuncSetAttribute) is
@@ -73,10 +90,12 @@ cudaError_t once_per_device(bool (&done)[MAX_DEVICES], Set set) {
   return cudaSuccess;
 }
 
-// The pointers of one field's encoding tables (s[2] null with 2 scales).
+// The pointers of one field's encoding tables (s[2] null with 2 scales),
+// or, at a shape whose embed is given (EMBED_IN), that embed [E, N].
 struct Planes {
   const float* s[3];
   const float* cp;
+  const float* embed;
 };
 
 struct Tap {

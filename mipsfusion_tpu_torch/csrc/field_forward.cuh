@@ -42,7 +42,10 @@
 //    scale, one per group of 4 CP channels: 12 at the flagship, 11 or 13
 //    with a third scale) of each point, exactly the values its A fragments
 //    hold (zeros past the last part), and the softmax head is a few quad
-//    shuffles.
+//    shuffles. At a shape whose embed is given (common.cuh HashShape: the
+//    hash grid's 32 rows, 8 parts, 4 embed k-blocks), a lane reads its
+//    parts from that embed [E, N] instead (a warp's 8 points of a row are
+//    32 contiguous bytes), and there is no instance that writes it back.
 // The summation order is fixed, so a call gives the same bits every time.
 // Precision: float32 storage, 3xTF32 products with float32 accumulation.
 
@@ -379,7 +382,17 @@ __global__ void __launch_bounds__(K1_NT, 1)
       const int part = t + 4 * i;
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
-        const float4 v = embed_part<Sh>(P, xp[q], part);
+        float4 v;
+        if constexpr (Sh::EMBED_IN) {        // the hash grid's, given
+          v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (ok[q]) {
+            const float* e = P.embed + (size_t)(4 * part) * S + n[q];
+            v = make_float4(__ldg(e), __ldg(e + S), __ldg(e + 2 * S),
+                            __ldg(e + 3 * S));
+          }
+        } else {
+          v = embed_part<Sh>(P, xp[q], part);
+        }
         em[2 * i][q] = v.x;
         em[2 * i][2 + q] = v.y;
         em[2 * i + 1][q] = v.z;
@@ -491,13 +504,29 @@ int field_forward(const float* x, int n, Planes P, DecoderW dw,
                                                   embed, sms, st);
 }
 
+// K1 at a shape whose embed is given (EMBED_IN): embed [E, N], as the
+// hash kernels write it.
+template <class Sh>
+int field_forward_embed(const float* x, int n, const float* embed,
+                        DecoderW dw, float* packed, int sms, float* out,
+                        int sdf_only, cudaStream_t st) {
+  static_assert(Sh::EMBED_IN, "a shape whose embed is given");
+  if (n <= 0) return (int)cudaSuccess;
+  int e = pack_weights<Sh>(dw, packed, st);
+  if (e != (int)cudaSuccess) return e;
+  Planes P{};
+  P.embed = embed;
+  return sdf_only ? (int)launch_k1<Sh, true, false>(x, n, P, packed, out,
+                                                    nullptr, sms, st)
+                  : (int)launch_k1<Sh, false, false>(x, n, P, packed, out,
+                                                     nullptr, sms, st);
+}
+
 }  // namespace
 }  // namespace mf
 
-// The C entry points of K1 at shape SH, each named <name>_SUFFIX. Plane
-// pointers are s0, s1, s2 (s2 null with 2 scales), then cp; the decoder's
-// w, b per layer (trunk0, trunk1, rgb, sdf0, sdf1) follow.
-#define MF_FIELD_FORWARD_ENTRY_POINTS(SH, SUFFIX)                             \
+// K1's packed-weight entry points at shape SH (every shape).
+#define MF_FIELD_PACK_ENTRY_POINTS(SH, SUFFIX)                                \
   extern "C" int mf_field_packed_size_##SUFFIX() {                           \
     return mf::K1Layout<SH>::SIZE;                                           \
   }                                                                          \
@@ -507,7 +536,25 @@ int field_forward(const float* x, int n, Planes P, DecoderW dw,
     return mf::pack_weights<SH>(                                             \
         mf::make_dw(w0, b0, w1, b1, wr, br, ws0, bs0, ws1, bs1), packed,     \
         (cudaStream_t)stream);                                               \
-  }                                                                          \
+  }
+
+// K1's entry point at a shape whose embed is given (SH::EMBED_IN): x, the
+// embed [E, N], then the decoder's w, b per layer.
+#define MF_FIELD_FORWARD_EMBED_ENTRY_POINTS(SH, SUFFIX)                       \
+  MF_FIELD_PACK_ENTRY_POINTS(SH, SUFFIX)                                     \
+  extern "C" int mf_field_forward_embed_##SUFFIX(                            \
+      const float* x, int n, const float* embed, MF_DECODER_ARGS,            \
+      float* packed, int sms, float* out, int sdf_only, void* stream) {      \
+    return mf::field_forward_embed<SH>(                                      \
+        x, n, embed, mf::make_dw(w0, b0, w1, b1, wr, br, ws0, bs0, ws1, bs1), \
+        packed, sms, out, sdf_only, (cudaStream_t)stream);                   \
+  }
+
+// The C entry points of K1 at shape SH, each named <name>_SUFFIX. Plane
+// pointers are s0, s1, s2 (s2 null with 2 scales), then cp; the decoder's
+// w, b per layer (trunk0, trunk1, rgb, sdf0, sdf1) follow.
+#define MF_FIELD_FORWARD_ENTRY_POINTS(SH, SUFFIX)                             \
+  MF_FIELD_PACK_ENTRY_POINTS(SH, SUFFIX)                                     \
   extern "C" int mf_field_forward_##SUFFIX(                                  \
       const float* x, int n, const float* s0, const float* s1,               \
       const float* s2, const float* cp, MF_DECODER_ARGS, float* packed,      \

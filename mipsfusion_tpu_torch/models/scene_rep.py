@@ -9,9 +9,12 @@ raw outputs [5 + C, N, S]. The field's encoding is ``FieldConfig.enc``:
     for training (GO, BA, init) and K1 for gradient-free queries (RO
     fitness, the mesher);
   * ``"HashGrid"`` (the reference paper's field, and the JAX package's
-    default): ``ops/encoding.hash_encode`` + the frequency encoding + the
-    decoder in plain torch on every device, as in the JAX package (which
-    has no kernel for it), float32 with TF32 off.
+    default): on the card the differentiable ``HashQueryT`` (H1, K1 on its
+    embed; K2, H2, H3) and, for gradient-free queries, H1 then K1
+    (``field_cuda.hash_field_forward``); on the CPU
+    ``ops/encoding.hash_encode`` + the frequency encoding + the decoder in
+    plain torch, as in the JAX package (which has no kernel for it),
+    float32 with TF32 off.
 
 Over a mesh of devices (``parallel/sharding.py``), the loss of a ray batch
 split in shards is ``forward_losses_T_sharded``: each shard renders its
@@ -35,7 +38,8 @@ from torch import nn
 from ..ops.encoding import (FrequencyConfig, HashGridConfig, TriplaneConfig,
                             frequency_encode, hash_encode, init_hash_table,
                             init_triplane)
-from ..ops.field_cuda import field_forward, field_query_T
+from ..ops.field_cuda import (field_forward, field_query_T,
+                              hash_field_forward, hash_query_T)
 from ..ops.losses import (compute_loss, emd_terms, get_masks, get_sdf_loss_T,
                           mse2psnr)
 from ..parallel.sharding import split
@@ -194,20 +198,26 @@ def hash_field(params: Dict, x: torch.Tensor, cfg: FieldConfig,
 def query_color_sdf_T(params: Dict, ptsT_norm: torch.Tensor,
                       cfg: FieldConfig) -> torch.Tensor:
     """Differentiable query of normalized points [3, M] -> [5 + C, M]."""
+    xT = ptsT_norm / cfg.norm_factor
     if cfg.enc == "HashGrid":
-        return hash_field(params, (ptsT_norm / cfg.norm_factor).T, cfg).T
-    return field_query_T(params, ptsT_norm / cfg.norm_factor, *cfg.meta)
+        if xT.device.type == "cpu":
+            return hash_field(params, xT.T, cfg).T
+        return hash_query_T(params, xT, cfg)
+    return field_query_T(params, xT, *cfg.meta)
 
 
 def field_outputs_T(params: Dict, ptsT_norm: torch.Tensor, cfg: FieldConfig,
                     sdf_only: bool = False) -> torch.Tensor:
     """Gradient-free query of normalized points [3, M] -> [5 + C, M] (or
-    [1, M] with ``sdf_only``): K1 on the Triplane field, the plain hash
-    grid on the HashGrid field."""
+    [1, M] with ``sdf_only``): K1 on the Triplane field; on the HashGrid
+    field H1 and K1 on the card, the plain hash grid on the CPU."""
     xg = (ptsT_norm / cfg.norm_factor).contiguous()
     with torch.no_grad():
         if cfg.enc == "HashGrid":
-            return hash_field(params, xg.T, cfg, sdf_only=sdf_only).T
+            if xg.device.type == "cpu":
+                return hash_field(params, xg.T, cfg, sdf_only=sdf_only).T
+            return hash_field_forward(xg, params["hash"], params["decoder"],
+                                      cfg, sdf_only=sdf_only)
         return field_forward(xg, params["planes"], params["decoder"],
                              *cfg.meta, sdf_only=sdf_only)
 

@@ -41,24 +41,38 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# The C entry points of every shape (each named mf_<fn>_<shape name>).
-# Plane pointers: s0, s1, s2 (null with 2 scales), then cp.
-_SIGNATURES = {
+# The C entry points of a shape (each named mf_<fn>_<shape name>): those
+# of every shape (K1's packer, K2), then those of a Triplane + CP shape
+# (K1 on the planes, K0, K3, K4) or of a hash-grid shape (K1 on a given
+# embed, H1-H3). Plane pointers: s0, s1, s2 (null with 2 scales), then cp.
+# A hash entry point takes the grid's levels as log2 T, the dense levels
+# and host pointers to the L scales and resolutions.
+_COMMON_SIGNATURES = {
     "mf_field_packed_size": [],
     "mf_field_pack_weights": [_P] * 10 + [_P, _P],
-    "mf_field_forward": ([_P, _I] + [_P] * 4 + [_P] * 10
-                         + [_P, _I, _P, _P, _I, _P]),
     "mf_decoder_wt_size": [],
     "mf_decoder_grad_size": [],
     "mf_decoder_pack_weights": [_P] * 10 + [_P, _P],
     "mf_decoder_backward": ([_P, _P, _P, _I] + [_P] * 10
                             + [_P, _P, _I, _P, _P, _P, _I, _P]),
+}
+_TRIPLANE_SIGNATURES = {
+    "mf_field_forward": ([_P, _I] + [_P] * 4 + [_P] * 10
+                         + [_P, _I, _P, _P, _I, _P]),
     "mf_encode_forward": [_P] * 5 + [_I, _P] + [_I] * 4 + [_P],
     "mf_encode_setup": [],
     "mf_encode_smem_size": [],
     "mf_plane_backward_acc_size": [],
     "mf_plane_backward": [_P, _P, _P, _I] + [_P] * 7,
     "mf_x_backward": [_P] * 6 + [_I, _P, _P, _P],
+}
+_HASH_SIGNATURES = {
+    "mf_field_forward_embed": ([_P, _I, _P] + [_P] * 10
+                               + [_P, _I, _P, _I, _P]),
+    "mf_hash_embed_size": [],
+    "mf_hash_forward": [_P, _I, _P, _I, _I, _P, _P, _P, _P],
+    "mf_hash_table_backward": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "mf_hash_x_backward": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P],
 }
 
 UNIT = os.path.join(CSRC, "shape.cu")
@@ -144,7 +158,7 @@ def lib() -> ctypes.CDLL:
         handle = ctypes.CDLL(build())
         for shape in SHAPES.values():
             fns = {}
-            for name, argtypes in _SIGNATURES.items():
+            for name, argtypes in shape.signatures.items():
                 fn = getattr(handle, f"{name}_{shape.name}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -152,9 +166,12 @@ def lib() -> ctypes.CDLL:
             sizes = {name: fn() for name, fn in fns.items()
                      if name.endswith("_size")}
             want = {"mf_decoder_grad_size": shape.grad_offsets[-1],
-                    "mf_decoder_wt_size": shape.k2_packed_size,
-                    "mf_plane_backward_acc_size": shape.table_size,
-                    "mf_encode_smem_size": shape.encode_smem}
+                    "mf_decoder_wt_size": shape.k2_packed_size}
+            if shape.hash_levels:
+                want["mf_hash_embed_size"] = shape.embed_dim
+            else:
+                want["mf_plane_backward_acc_size"] = shape.table_size
+                want["mf_encode_smem_size"] = shape.encode_smem
             for name, n in want.items():
                 if sizes[name] != n:
                     raise RuntimeError(
@@ -265,8 +282,10 @@ def check(err: int, what: str) -> None:
 
 
 # What every shape shares (csrc/common.cuh): F = 4 features a plane, 8 PE
-# bands, 5 classes, decoder widths 128 / 64+64 / 128.
+# bands, 5 classes, decoder widths 128 / 64+64 / 128; a hash grid's
+# levels hold 2 features each.
 N_FEATURES = 4
+HASH_FEATURES = 2
 N_FREQ = 8
 N_CLASS = 5
 PE_DIM = 3 + 3 * 2 * N_FREQ               # 51: raw xyz + sin/cos
@@ -343,18 +362,30 @@ class FieldShape:
     """One field shape the kernels are compiled for (``csrc/shape.cu``
     with the flags ``defines``): plane scales of ``resolutions`` with
     ``N_FEATURES`` features each, and CP lines of ``cp_resolution`` rows x
-    ``cp_components`` channels."""
+    ``cp_components`` channels; or, with ``hash_levels``, the embed of a
+    multiresolution hash grid of that many levels of ``HASH_FEATURES``
+    (no planes: H1 writes the embed, K1 reads it)."""
 
     name: str
     resolutions: tuple
     cp_resolution: int
     cp_components: int
     configs: str                          # the configs that use it
+    hash_levels: int = 0
 
     @functools.cached_property
     def key(self):
+        if self.hash_levels:
+            return ("HashGrid", self.hash_levels, HASH_FEATURES)
         return (self.resolutions, N_FEATURES, self.cp_resolution,
                 self.cp_components)
+
+    @functools.cached_property
+    def signatures(self):
+        """The ctypes signatures of the shape's C entry points."""
+        return {**_COMMON_SIGNATURES,
+                **(_HASH_SIGNATURES if self.hash_levels
+                   else _TRIPLANE_SIGNATURES)}
 
     @functools.cached_property
     def n_scales(self) -> int:
@@ -377,6 +408,9 @@ class FieldShape:
     @functools.cached_property
     def defines(self):
         """The nvcc flags that compile csrc/shape.cu at this shape."""
+        if self.hash_levels:
+            return [f"-DMF_SHAPE={self.name}",
+                    f"-DMF_HASH_L={self.hash_levels}"]
         r = tuple(self.resolutions) + (0,) * (3 - self.n_scales)
         return [f"-DMF_SHAPE={self.name}", f"-DMF_NS={self.n_scales}",
                 f"-DMF_R0={r[0]}", f"-DMF_R1={r[1]}", f"-DMF_R2={r[2]}",
@@ -385,8 +419,10 @@ class FieldShape:
 
     @functools.cached_property
     def embed_dim(self) -> int:
-        """E: one row per feature of every scale, then the CP channels."""
-        return self.n_scales * N_FEATURES + self.cp_components
+        """E: one row per feature of every scale, then the CP channels; a
+        hash grid's features level by level."""
+        return (self.n_scales * N_FEATURES + self.cp_components
+                + HASH_FEATURES * self.hash_levels)
 
     @functools.cached_property
     def embed_pad(self) -> int:
@@ -395,7 +431,8 @@ class FieldShape:
 
     @functools.cached_property
     def n_parts(self) -> int:
-        """The embed's 4-row parts: one per scale, one per 4 CP channels."""
+        """The embed's 4-row parts: one per scale, one per 4 CP channels
+        (a hash grid's: one per two levels)."""
         return self.embed_dim // 4
 
     @functools.cached_property
@@ -511,13 +548,22 @@ SHAPES = {s.key: s for s in (
                "configs/synthetic/orbit_fast_cp.yaml"),
     FieldShape("fcl", (32, 64, 128), 384, 40,
                "configs/FastCaMo-large/*.yaml"),
+    FieldShape("hash", (), 0, 0,
+               "grid.enc HashGrid: configs/base.yaml's hash grid, "
+               "perfbench/configs/hash-full.json", hash_levels=16),
 )}
 
 
+def _describe(s: FieldShape) -> str:
+    if s.hash_levels:
+        return (f"HashGrid {s.hash_levels} x {HASH_FEATURES} levels "
+                f"({s.configs})")
+    return (f"{list(s.resolutions)} x F{N_FEATURES} + CP {s.cp_resolution} "
+            f"x {s.cp_components} ({s.configs})")
+
+
 def _table() -> str:
-    return "; ".join(
-        f"{list(s.resolutions)} x F{N_FEATURES} + CP {s.cp_resolution} x "
-        f"{s.cp_components} ({s.configs})" for s in SHAPES.values())
+    return "; ".join(_describe(s) for s in SHAPES.values())
 
 
 _SCALE_KEYS = ("s0", "s1", "s2")
@@ -550,6 +596,18 @@ def kernel_shape(planes=None, n_scales: int = 0, n_freq: int = N_FREQ,
         raise ValueError(
             f"the field kernels take these shapes only: {_table()}; got "
             f"Triplane {list(res)} x F{n_feat} + CP {cp[1]} x {cp[2]}")
+    return shape
+
+
+def hash_shape(n_levels: int, n_features: int) -> FieldShape:
+    """The table's entry for a hash grid of ``n_levels`` levels of
+    ``n_features``; a ValueError naming the shapes the kernels take where
+    there is none."""
+    shape = SHAPES.get(("HashGrid", n_levels, n_features))
+    if shape is None:
+        raise ValueError(f"the field kernels take these shapes only: "
+                         f"{_table()}; got HashGrid {n_levels} x "
+                         f"{n_features} levels")
     return shape
 
 

@@ -13,9 +13,11 @@ the upper tap of a point at the bound would read row R. It carries weight
 0 there, and ``taps`` clamps its index to R-1 so the read stays in range.
 
 The hash grid (``hash_encode``, the reference paper's own field) has no
-Pallas kernel in the JAX package and none here: it is plain torch on
-every device. Its table gradient is summed in int64 fixed point, so a
-call gives the same bits every time on the card (see ``HashEncode``).
+Pallas kernel in the JAX package. Here it is plain torch on the CPU and
+the oracle of the CUDA kernels H1-H3 (``ops/hash_cuda.py``), which the
+field's queries take on the card. Its table gradient is summed in int64
+fixed point, so a call gives the same bits every time on the card (see
+``HashEncode``), and the kernel's bits are the plain version's.
 """
 
 from __future__ import annotations
@@ -278,6 +280,15 @@ def _hash_forward(table: torch.Tensor, x: torch.Tensor,
     return torch.cat(out) if len(out) != 1 else out[0]
 
 
+def fixed_point_scale(g: torch.Tensor) -> torch.Tensor:
+    """The table gradient's fixed-point scale for the cotangent g [N, L, F]:
+    2^(61 - e), where 2^e bounds the largest column sum of |g|, a float32
+    scalar on g's device (no host read)."""
+    e = torch.frexp(g.abs().sum(0).amax())[1]
+    return torch.ldexp(torch.ones((), device=g.device),
+                       torch.clamp(61 - e, -120, 120).to(torch.float32))
+
+
 def _hash_backward(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
                    cfg: HashGridConfig, need_x: bool, need_table: bool):
     """(d_x [N, 3] or None, d_table [L, T, F] or None) for the output
@@ -295,9 +306,7 @@ def _hash_backward(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
     d_x, acc, scale = None, None, None
     if need_table:
         acc = torch.zeros((L * T, F), dtype=torch.int64, device=x.device)
-        e = torch.frexp(g.abs().sum(0).amax())[1]
-        scale = torch.ldexp(torch.ones((), device=x.device),
-                            torch.clamp(61 - e, -120, 120).to(torch.float32))
+        scale = fixed_point_scale(g)
     if need_x:
         d_x = torch.empty_like(x)
     for s in range(0, x.shape[0], HASH_CHUNK):

@@ -1,5 +1,6 @@
 """K1 (fused field forward), K2 (decoder backward) and the differentiable
-field query ``FieldQueryT``.
+field queries ``FieldQueryT`` (the Triplane + CP field) and ``HashQueryT``
+(the hash-grid field).
 
 Port of ``mipsfusion_tpu/ops/field_pallas.py``: ``field_forward``
 replaces ``field_query_pallas``, ``decoder_backward`` replaces
@@ -17,7 +18,9 @@ replay (``add_launch_counts``): the counts stay those of the kernels the
 device ran.
 
 Field parameters are the JAX tree's layout:
-``{"planes": {"s0", "s1"(, "s2"), "cp"}, "decoder": {layer: {"w", "b"}}}``.
+``{"planes": {"s0", "s1"(, "s2"), "cp"}, "decoder": {layer: {"w", "b"}}}``
+or ``{"hash": [L, T, 2], "decoder": ...}``. On the hash-grid field K1 runs
+at the ``hash`` shape on the embed that H1 (``ops/hash_cuda.py``) wrote.
 Point-indexed arrays are points-minor: x [3, N], out [5 + C, N],
 embed [E, N].
 """
@@ -32,6 +35,7 @@ import torch
 from ..models.decoder import LAYERS, decoder_apply
 from . import _build
 from .encoding import frequency_encode, triplane_encode
+from .hash_cuda import hash_forward, hash_table_backward, hash_x_backward
 from .triplane_cuda import (encode_forward, plane_backward, plane_keys,
                             plane_ptrs, planes_from_tensors, x_backward)
 
@@ -212,11 +216,15 @@ def field_forward(xT: torch.Tensor, planes: Dict[str, torch.Tensor],
             out.data_ptr(), embed.data_ptr() if return_embed else None,
             int(sdf_only), _build.stream(xT.device))
     _build.check(err, "field_forward")
-    _build.count_launch(field_forward, xT.device)
-    if sdf_only:
-        field_forward.sdf_launches_by_n[N] = \
-            field_forward.sdf_launches_by_n.get(N, 0) + 1
+    _count_k1(xT.device, N, sdf_only)
     return (out, embed) if return_embed else out
+
+
+def _count_k1(device, n: int, sdf_only: bool) -> None:
+    _build.count_launch(field_forward, device)
+    if sdf_only:
+        field_forward.sdf_launches_by_n[n] = \
+            field_forward.sdf_launches_by_n.get(n, 0) + 1
 
 
 field_forward.launches = 0
@@ -224,6 +232,35 @@ field_forward.launches_by_device = {}
 # K1's sdf-only launches by point count (RO's queries; the screen's two
 # stages differ in size)
 field_forward.sdf_launches_by_n = {}
+
+
+def field_forward_embed(xT: torch.Tensor, embed: torch.Tensor, dec: Tree,
+                        n_freq: int, n_class: int,
+                        sdf_only: bool = False) -> torch.Tensor:
+    """PE + decoder on x [3, N] and a given embed [E, N] -> [5 + C, N] (or
+    [1, N] with ``sdf_only``): the plain decoder for a CPU tensor, K1 at
+    the table's shape of that embed width for a CUDA one (the hash grid's,
+    whose embed H1 writes). Counted among ``field_forward``'s launches."""
+    if xT.device.type == "cpu":
+        x = xT.T
+        pe = torch.cat([x, frequency_encode(x, n_freq)], dim=-1)
+        return decoder_apply(dec, embed.T, pe, n_class, sdf_only=sdf_only).T
+    shape = _build.kernel_shape(n_freq=n_freq, n_class=n_class,
+                                embed_dim=embed.shape[0])
+    N = xT.shape[1]
+    out = torch.empty((1 if sdf_only else 5 + n_class, N), device=xT.device)
+    packed = torch.empty((shape.size("field_packed_size"),),
+                         device=xT.device)
+    with torch.cuda.device(xT.device):
+        err = shape.fn("field_forward_embed")(
+            _build.ptr(xT, "x", (3, N)), N,
+            _build.ptr(embed, "embed", (shape.embed_dim, N)),
+            *_dec_ptrs(dec, shape), packed.data_ptr(),
+            _build.sm_count(xT.device), out.data_ptr(), int(sdf_only),
+            _build.stream(xT.device))
+    _build.check(err, "field_forward_embed")
+    _count_k1(xT.device, N, sdf_only)
+    return out
 
 
 # ----------------------------------------------------------------- K2 ----
@@ -452,12 +489,70 @@ def field_query_T(params: Tree, xT: torch.Tensor, n_scales: int,
                              *tensors)
 
 
+class HashQueryT(torch.autograd.Function):
+    """out [5 + C, N] = field(x [3, N]) of the hash-grid field with the
+    kernels' backward.
+
+    Forward is H1 (the embed) then K1 on it, with the embed saved. Backward
+    is K2 (decoder and PE), then H2 only if the table needs a gradient
+    (GO differentiates only the pose), then H3 only if x does; H3 takes
+    K2's d_x through the PE and returns the sum. Inputs after ``cfg`` (the
+    ``FieldConfig``) are the table and the decoder's w, b per layer.
+    """
+
+    @staticmethod
+    def forward(ctx, xT, cfg, table, *dec_tensors):
+        dec = _dec_tree(dec_tensors)
+        embed = hash_forward(xT, table, cfg.grid)
+        out = field_forward_embed(xT, embed, dec, cfg.freq.n_frequencies,
+                                  cfg.decoder.n_class)
+        ctx.cfg = cfg
+        ctx.save_for_backward(xT, embed, table, *dec_tensors)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg = ctx.cfg
+        xT, embed, table, *dec_tensors = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        need_dec = any(need[3:])
+        d_x_pe, d_embed, d_dec = decoder_backward(
+            xT, g.contiguous(), embed, _dec_tree(dec_tensors),
+            cfg.freq.n_frequencies, cfg.decoder.n_class,
+            weight_grads=need_dec)
+        d_table = (hash_table_backward(xT, d_embed, table, cfg.grid)
+                   if need[2] else None)
+        dec_grads = _dec_flat(d_dec) if need_dec else [None] * 2 * len(LAYERS)
+        d_x = (hash_x_backward(xT, d_embed, table, cfg.grid, d_x_pe=d_x_pe)
+               if need[0] else None)
+        return (d_x, None, d_table, *dec_grads)
+
+
+def hash_query_T(params: Tree, xT: torch.Tensor, cfg) -> torch.Tensor:
+    """Differentiable query of params {"hash", "decoder"} at x [3, N] (a
+    ``FieldConfig`` of the HashGrid field)."""
+    return HashQueryT.apply(xT.contiguous(), cfg, params["hash"],
+                            *_dec_flat(params["decoder"]))
+
+
+def hash_field_forward(xT: torch.Tensor, table: torch.Tensor, dec: Tree, cfg,
+                       sdf_only: bool = False) -> torch.Tensor:
+    """Gradient-free query of the hash-grid field at x [3, N]: H1, then K1
+    on its embed (sdf only where asked)."""
+    embed = hash_forward(xT, table, cfg.grid)
+    return field_forward_embed(xT, embed, dec, cfg.freq.n_frequencies,
+                               cfg.decoder.n_class, sdf_only=sdf_only)
+
+
 KERNEL_WRAPPERS = {
     "encode_forward": encode_forward,
     "field_forward": field_forward,
     "decoder_backward": decoder_backward,
     "plane_backward": plane_backward,
     "x_backward": x_backward,
+    "hash_forward": hash_forward,
+    "hash_table_backward": hash_table_backward,
+    "hash_x_backward": hash_x_backward,
 }
 
 
@@ -470,7 +565,7 @@ def reset_launch_counts() -> None:
 
 
 def launch_counters() -> Dict:
-    """Every launch counter of the five wrappers, as {(wrapper, counter):
+    """Every launch counter of the wrappers, as {(wrapper, counter):
     count} for the totals and K2's launches with weight gradients and
     {(wrapper, counter, key): count} for the per-device counts and K1's
     sdf-only launches by point count."""

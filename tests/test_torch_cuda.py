@@ -472,3 +472,128 @@ def test_kernels_on_a_second_card_give_the_first_cards_bits(card):
     for name in ("field_forward", "decoder_backward", "plane_backward",
                  "x_backward"):
         assert counts[name] == {0: 1, 1: 1}, (name, counts[name])
+
+
+# ------------------------------------------------- the hash-grid shape ----
+
+@pytest.fixture(scope="module")
+def hash_card():
+    """(device, params at the hash shape: 16 x 2 levels, 2^19 rows, a table
+    drawn U(-1, 1); the grid's config)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    return (dev, chip_smoke.field_params("hash", 0, dev),
+            chip_smoke.field_config("hash").grid)
+
+
+def _hash_points(label, dev):
+    """x [3, N] at BA's 195,000 points, RO's 768,000 sdf points, a count
+    that is no multiple of a block, and BA's ray-ordered points."""
+    if label == "rays":
+        return chip_smoke.ray_points(2600, 75, 8, dev)
+    return chip_smoke.test_points(int(label), 1, dev)
+
+
+@pytest.mark.parametrize("points", ["195000", "768000", "195001", "rays"])
+def test_hash_kernels_match_plain(hash_card, points):
+    """H1 against ``_hash_forward`` (8 corners blended in the plain order:
+    relative 2e-5), H3 against ``_hash_backward``'s d_x plus d_x_pe (16
+    levels x 8 corners in another order: relative 1e-4), and H2's table
+    gradient equal to the plain one bit for bit (the same int64 sums)."""
+    from mipsfusion_tpu_torch.ops import encoding as enc
+    from mipsfusion_tpu_torch.ops import hash_cuda as hc
+    dev, prm, grid = hash_card
+    table = prm["hash"]
+    x = _hash_points(points, dev)
+    n = x.shape[1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    g = torch.randn((32, n), generator=gen, device=dev) * 0.1
+    d_x_pe = torch.randn((3, n), generator=gen, device=dev)
+    assert chip_smoke._err(hc.hash_forward(x, table, grid),
+                           enc._hash_forward(table, x.T, grid).T)[1] < 2e-5
+    want = d_x_pe + enc._hash_backward(table, x.T, g.T, grid, True,
+                                       False)[0].T
+    assert chip_smoke._err(hc.hash_x_backward(x, g, table, grid, d_x_pe),
+                           want)[1] < 1e-4
+    assert torch.equal(hc.hash_table_backward(x, g, table, grid),
+                       enc._hash_backward(table, x.T, g.T, grid, False,
+                                          True)[1])
+
+
+def test_hash_kernels_give_the_same_bits_every_call(hash_card):
+    """H1-H3 on ray-ordered points, where H2's atomics contend most: the
+    same bits on two calls."""
+    from mipsfusion_tpu_torch.ops import hash_cuda as hc
+    dev, prm, grid = hash_card
+    table = prm["hash"]
+    x = chip_smoke.ray_points(300, 75, 4, dev)
+    g = torch.randn((32, x.shape[1]), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    for fn in (lambda: hc.hash_forward(x, table, grid),
+               lambda: hc.hash_table_backward(x, g, table, grid),
+               lambda: hc.hash_x_backward(x, g, table, grid)):
+        assert torch.equal(fn(), fn())
+
+
+@pytest.mark.parametrize("points", ["195000", "rays"])
+def test_k1_k2_at_the_hash_shape_match_plain(hash_card, points):
+    """K1 on H1's embed (E = 32) against the plain decoder (relative 2e-5,
+    sdf only too) and K2 at E = 32 against ``decoder_backward_plain``
+    with and without weight gradients (a cotangent zero near ReLU kinks:
+    relative 1e-4)."""
+    from mipsfusion_tpu_torch.models.decoder import decoder_apply
+    from mipsfusion_tpu_torch.ops.encoding import frequency_encode
+    dev, prm, grid = hash_card
+    dec = prm["decoder"]
+    x = _hash_points(points, dev)
+    emb = fc.hash_forward(x, prm["hash"], grid)
+    pe = torch.cat([x.T, frequency_encode(x.T, 8)], dim=-1)
+    ref = decoder_apply(dec, emb.T, pe, 5).T
+    assert chip_smoke._err(fc.field_forward_embed(x, emb, dec, 8, 5),
+                           ref)[1] < 2e-5
+    sdf = fc.field_forward_embed(x, emb, dec, 8, 5, sdf_only=True)
+    assert chip_smoke._err(sdf[0], ref[3])[1] < 2e-5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    g = torch.randn((10, x.shape[1]), generator=gen, device=dev) * 0.1
+    g, _ = chip_smoke.kink_free(g, x, emb, dec)
+    r2 = fc.decoder_backward_plain(x, g, emb, dec, 8, 5)
+    for wg in (True, False):
+        k2 = fc.decoder_backward(x, g, emb, dec, 8, 5, weight_grads=wg)
+        assert chip_smoke._err(k2[0], r2[0])[1] < 1e-4
+        assert chip_smoke._err(k2[1], r2[1])[1] < 1e-4
+        if wg:
+            for n in k2[2]:
+                for k in ("w", "b"):
+                    assert chip_smoke._err(k2[2][n][k],
+                                           r2[2][n][k])[1] < 1e-4
+
+
+# K1's and K2's outputs at every Triplane shape (chip_smoke.triplane_digests:
+# the BA, RO and GO sizes of each shape's labels) as the tree before the
+# hash shape gave them on an NVIDIA H100 80GB HBM3: adding the hash shape
+# changed none of their bits
+TRIPLANE_DIGESTS = {
+    "flag": {"field_forward": "712e261c65ff1a80",
+             "field_forward_sdf": "63330de3e57ded2e",
+             "decoder_backward": "75d4cd5224edd850",
+             "decoder_backward_go": "bcaffe7d64e56488"},
+    "cp": {"field_forward": "71059552a2ab6c1d",
+           "field_forward_sdf": "22ae15bf314ef220",
+           "decoder_backward": "7dabe9ee8d476e7e",
+           "decoder_backward_go": "fa87a0e52ecc43b7"},
+    "fcl": {"field_forward": "d7d7c902561fbc3d",
+            "field_forward_sdf": "af9d4ccef357621d",
+            "decoder_backward": "2301c8b2d211c335",
+            "decoder_backward_go": "e8d2c7c18e0b17b0"},
+}
+
+
+def test_triplane_k1_k2_bits_are_unchanged(hash_card):
+    """Every Triplane shape's K1 and K2 outputs at the smoke's labels carry
+    the digests recorded before the hash shape existed (on an H100)."""
+    if "H100" not in torch.cuda.get_device_name(0):
+        pytest.skip("the digests were recorded on an H100")
+    assert chip_smoke.triplane_digests() == TRIPLANE_DIGESTS

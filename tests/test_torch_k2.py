@@ -22,6 +22,7 @@ import torch
 import chip_smoke
 from mipsfusion_tpu_torch.ops import _build
 from mipsfusion_tpu_torch.ops import field_cuda as fc
+from mipsfusion_tpu_torch.ops.hash_cuda import hash_forward
 
 torch.set_num_threads(1)
 
@@ -73,7 +74,8 @@ def test_k2_packed_weights_land_once_per_direction(name):
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_k2_plain_packer_pads_with_zeros(name):
     shape = SHAPES[name]
-    dec = chip_smoke.field_params(name, 1, torch.device("cpu"))["decoder"]
+    dec = chip_smoke.field_params(name, 1, torch.device("cpu"),
+                                  log2_rows=12)["decoder"]
     dec = {n: {k: t + 1.0 for k, t in d.items()} for n, d in dec.items()}
     packed = fc.pack_k2_weights(dec, shape)
     idx = torch.as_tensor(fc.k2_packed_index(shape))
@@ -260,12 +262,16 @@ def test_k2_tile_dataflow_matches_plain(name, weight_grads):
     where float32 and float64 may take different sides)."""
     shape = SHAPES[name]
     dev = torch.device("cpu")
-    p = chip_smoke.field_params(name, 2, dev)
+    p = chip_smoke.field_params(name, 2, dev, log2_rows=12)
     dec = p["decoder"]
     x = chip_smoke.test_points(100, 3, dev)
-    ns = len(shape.resolutions)
-    _, emb = fc.field_forward_plain(x, p["planes"], dec, ns, 8, 5,
-                                    return_embed=True)
+    if shape.hash_levels:
+        emb = hash_forward(x, p["hash"], chip_smoke.field_config(
+            name, 12).grid)
+    else:
+        ns = len(shape.resolutions)
+        _, emb = fc.field_forward_plain(x, p["planes"], dec, ns, 8, 5,
+                                        return_embed=True)
     gen = torch.Generator().manual_seed(4)
     g = torch.randn((10, 100), generator=gen) * 0.1
     g, _ = chip_smoke.kink_free(g, x, emb, dec)

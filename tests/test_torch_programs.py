@@ -324,6 +324,106 @@ def test_replays_add_the_captured_launch_counts():
     fc.reset_launch_counts()
 
 
+# ------------------------------------------------ the HashGrid field ----
+
+@pytest.fixture(scope="module")
+def hash_corridor():
+    """The corridor run of ``corridor`` with the HashGrid field (16 levels
+    x 2 features, 2^12 rows a level): on the CPU the plain hash grid, the
+    kernels' path on the card."""
+    cfg = corridor_config(N_FRAMES)
+    cfg["grid"].update(enc="HashGrid", hash_size=12)
+    ds = SyntheticDataset(cfg, n_frames=N_FRAMES, trajectory="corridor",
+                          span=0.55, device="cpu")
+    slam = MIPSFusionTorch(cfg, dataset=ds, device="cpu")
+    assert slam.field.hash is not None
+    slam.run(verbose=False)
+    assert any(flag == 3 for _, flag in slam.switch_events)
+    return slam, ds
+
+
+@pytest.mark.parametrize("stage", ["track", "ba", "refine"])
+def test_hash_programs_equal_the_functions(hash_corridor, stage):
+    """On the HashGrid field, tracking the last frame, local BA on the
+    active submap and a refine round on the inactive submap 0 through
+    their programs give the bits of a direct call of the stage function
+    (result, field and moments), and the launch counters the programs
+    record include the hash kernels' wrappers (H1-H3: launches and
+    points)."""
+    slam, ds = hash_corridor
+    i = N_FRAMES - 1
+    assert any(p.stage == stage for p in slam.programs.programs.values())
+    if stage == "track":
+        args, _ = slam._track_args(ds.packed(i), i)
+        st = slam.state
+        out = []
+        for run in (slam.programs.track_frame_update,
+                    tracker.track_frame_update):
+            a = list(args)
+            a[6] = slam._generator("track", i)
+            a[8] = dataclasses.replace(st, est_c2w=st.est_c2w.clone(),
+                                       est_c2w_rel=st.est_c2w_rel.clone(),
+                                       keyframe_ref=st.keyframe_ref.clone())
+            res = run(*a)
+            out.append(([res.pose, res.loss, res.accepted],
+                        (a[8].est_c2w, a[8].est_c2w_rel)))
+        _same(out[0], out[1], "track")
+    else:
+        m, kw = slam.active_id, {"optim_cur": slam.optim_cur}
+        if stage == "ba":
+            args = slam._ba_args(ds.packed(i), i)
+        else:
+            bind = slam._host_kf_bind
+            mask = ((np.arange(bind.shape[0]) < slam.state.n_kf)
+                    & ((bind[:, 0] == 0) | (bind[:, 1] == 0))
+                    & (bind[:, 0] != 1))
+            assert mask.any()
+            args, m = slam._refine_args(0, mask), 0
+            kw = {"include_current": False}
+        (fa, oa), (fb, ob) = _copy(slam, m), _copy(slam, m)
+        ra = slam.programs.local_ba(fa, oa, *args,
+                                    slam._generator(stage, i), **kw)
+        rb = tmapper.local_ba(fb, ob, *args, slam._generator(stage, i),
+                              **kw)
+        _same(tuple(ra), tuple(rb), "BAResult")
+        _same(_field_and_moments(fa, oa), _field_and_moments(fb, ob),
+              "field")
+    counters = fc.launch_counters()
+    for name in ("hash_forward", "hash_table_backward", "hash_x_backward"):
+        assert name in fc.KERNEL_WRAPPERS
+        assert (name, "launches") in counters
+
+
+def test_replays_add_the_captured_hash_counts():
+    """A body that launches H1, K1 and, for a table gradient, K2, H2 and
+    H3 on 1,000 points: after the first call (warm-up and capture) the
+    hash kernels' launch counters read one call's, after each replay one
+    call's more."""
+    dev = torch.device("cpu")
+
+    def body(s):
+        for fn in (fc.hash_forward, fc.hash_table_backward,
+                   fc.hash_x_backward):
+            _build.count_launch(fn, dev)
+        _build.count_launch(fc.field_forward, dev)
+        _build.count_launch(fc.decoder_backward, dev)
+        return {"y": s["x"] + 1.0}
+
+    graphs = _RecordingGraphs()
+    prog = programs.Program("test", ("test",), body, graphs)
+    fc.reset_launch_counts()
+    for n in (1, 2, 3):
+        prog({"x": torch.zeros(2)})
+        c = fc.launch_counters()
+        for name in ("hash_forward", "hash_table_backward",
+                     "hash_x_backward"):
+            assert c[(name, "launches")] == n
+        assert c[("field_forward", "launches")] == n
+    assert graphs.replayed == 2
+    fc.reset_launch_counts()
+    assert fc.hash_forward.launches == 0
+
+
 def test_a_failed_capture_raises_with_stage_and_key():
     prog = programs.Program("track", ("track", 7), lambda s: {"y": s["x"]},
                             _RecordingGraphs(fail=True))

@@ -135,3 +135,50 @@ def test_zz_a_host_read_fails_the_capture():
     with pytest.raises(RuntimeError,
                        match=r"capturing stage 'probe' at key \('probe', 1\)"):
         prog({"x": torch.ones(4, device=dev)})
+
+
+@pytest.fixture(scope="module")
+def hash_run():
+    """The ``run`` fixture's 30 outback frames with the HashGrid field (16
+    levels x 2, 2^19 rows: H1-H3 and K1 / K2 at the hash shape)."""
+    dev = _device()
+    cfg = flagship_outback(use_manager=True)
+    cfg["data"]["output"] = None
+    cfg["grid"].update(enc="HashGrid", hash_size=19)
+    cfg["cam"].update(H=60, W=80, fx=40.0, fy=40.0, cx=39.5, cy=29.5)
+    cfg["tracking"].update(iter_RO=2, iter=4, sample=256)
+    cfg["tracking"]["RO"].update(particle_size=128, n_rows=8, n_cols=12)
+    cfg["mapping"].update(sample=384, pixels_cur=128, iters=4,
+                          first_iters=24, first_iters_chunk=8)
+    cfg["sampling"].update(kf_n_rays_h=12, kf_n_rays_w=16)
+    ds = SyntheticDataset(cfg, n_frames=30, trajectory="outback", span=0.3,
+                          device=dev)
+    slam = MIPSFusionTorch(cfg, dataset=ds, device=dev)
+    slam.run(verbose=False)
+    assert slam.field.hash is not None
+    return slam, ds
+
+
+@pytest.mark.parametrize("stage", STAGES)
+def test_hash_replay_equals_the_eager_call(hash_run, stage):
+    """On the HashGrid field each stage program's replay gives the eager
+    call's bits (H2's int64 table gradient included), and moves the
+    launch counters (the hash kernels' launches too) as the eager call
+    does."""
+    slam, ds = hash_run
+    prog, eager = _pair(slam, ds, stage)
+    prog([])
+    for _ in range(2):
+        assert chip_smoke._bits_equal(prog([]), eager([]))
+    fc.reset_launch_counts()
+    eager([])
+    want = fc.launch_counters()
+    fc.reset_launch_counts()
+    prog([])
+    assert fc.launch_counters() == want
+    assert want[("hash_forward", "launches")] > 0
+    # GO differentiates the pose alone, a first fit the field alone
+    assert (want[("hash_x_backward", "launches")] > 0) == (stage != "fit")
+    assert (want[("hash_table_backward", "launches")] > 0) == (
+        stage != "track")
+    fc.reset_launch_counts()
